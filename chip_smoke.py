@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
      launch counters set to 0 just before one query and read just after;
      then the median ms/query over 10 queries;
   5. the PnP perfect-correspondence fixture (rot < 0.5 deg, trans < 1 cm);
-  6. kernel and plain-version times, each kernel's bound.
+  6. kernel and plain-version times at the query shapes (every tile size)
+     and at the render shape (N=262144, K=8), each kernel's bound at the
+     FP32 peak and at the TF32 tensor-core peak.
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result.
@@ -28,9 +30,12 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+RENDER_N, RENDER_K = 262144, 8   # 4096 rays x 64 samples, 8 neighbours
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
 
 
@@ -94,38 +99,58 @@ def agg_inputs(N: int, K: int, F: int, W: int, seed: int, dev, params=None):
 
 
 def agg_cost(N: int, K: int, F: int, W: int, params, freqs):
-    """(FLOPs, bytes) the fused aggregation needs: every input read once,
-    the output written once."""
+    """(product FLOPs, other FLOPs, bytes) the fused aggregation needs:
+    every input read once, the output written once. With K=1 the softmax
+    weight is 1, so the q and k products and the scores are not needed."""
     NF, HD = freqs.numel(), 128
     RD1, RD2 = params["rd_w1"].shape[1], params["rd_w2"].shape[1]
     fin = F + 3 + 6 * NF + RD2
-    per_row = (2 * (4 * RD1 + RD1 * RD2) + 6 * NF + 3
-               + 2 * fin * W + 2 * 2 * W * W + 2 * 2 * W * HD)
-    per_sample = 2 * W * HD + 2 * HD * W + 2 * 2 * K * HD + 8 * W
-    flops = N * K * per_row + N * per_sample
+    n_kv = 2 if K > 1 else 1
+    prod = (N * K * (2 * fin * W + 2 * 2 * W * W + n_kv * 2 * W * HD)
+            + N * ((n_kv - 1) * 2 * W * HD + 2 * HD * W))
+    other = (N * K * (2 * (4 * RD1 + RD1 * RD2) + 6 * NF + 3)
+             + N * ((2 * 2 * K * HD if K > 1 else 0) + 8 * W))
     floats = (N * (3 + 4 + W) + N * K * (3 + 4 + F) + 1 + NF
               + sum(p.numel() for p in params.values()) + N * W)
-    return flops, 4 * floats
+    return prod, other, 4 * floats
+
+
+def agg_bounds(cost):
+    """(FP32 bound ms, tensor-core bound ms, what bounds the latter): the
+    larger of the operations over their peak and the bytes over HBM's."""
+    prod, other, nbytes = cost
+    f32_ms = max((prod + other) / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    terms = {"operations (tf32 tensor cores)": prod / PEAK_TF32_FLOPS,
+             "operations (fp32 cores)": other / PEAK_F32_FLOPS,
+             "bytes (hbm)": nbytes / PEAK_BYTES_PER_S}
+    unit = max(terms, key=terms.get)
+    return f32_ms, terms[unit] * 1e3, unit
 
 
 def check_fused_agg(dev):
-    """Kernel vs plain version at the main path's shapes, plus a ragged N
+    """Kernel vs plain version at the main path's shapes (every tile size),
+    a ragged N, K that leave part of a tile empty and misalign its feature
+    block (3) or span two softmax groups of 8 keys (12), the render shape,
     and one gradient. Returns the largest abs error."""
     import torch
     from nerfloc_tpu_torch.ops import fused_agg as fa
     worst = 0.0
-    for N, K in ((1024, 8), (1024, 1), (1000, 8)):
+    for N, K in ((1024, 8), (1024, 1), (1000, 8), (300, 3), (100, 12), (RENDER_N, RENDER_K)):
         x = agg_inputs(N, K, 195, 128, seed=N + K, dev=dev)
-        out = fa.launch(**x)
-        torch.cuda.synchronize()
-        ref = fa.reference_agg(**x)
-        err = (out - ref).abs()
-        bad = err > ATOL + RTOL * ref.abs()
-        worst = max(worst, float(err.max()))
-        print(f"fused_agg N={N} K={K}: max_abs_err={float(err.max()):.3g} "
-              f"(tol {ATOL}+{RTOL}*|ref|)")
-        if bool(bad.any()) or not bool(torch.isfinite(out).all()):
-            fail(f"fused_agg disagrees with reference_agg at N={N} K={K}")
+        with torch.no_grad():
+            ref = fa.reference_agg(**x)
+        plans = [0] if N == RENDER_N else [0] + [r for r in fa.TILE_ROWS if r >= K]
+        for rows in plans:
+            out = fa.launch(**x, rows=rows)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            bad = err > ATOL + RTOL * ref.abs()
+            worst = max(worst, float(err.max()))
+            print(f"fused_agg N={N} K={K} rows={rows or fa.tile_plan(N, K, fa._sm_count(dev))[0]}: "
+                  f"max_abs_err={float(err.max()):.3g} (tol {ATOL}+{RTOL}*|ref|)")
+            if bool(bad.any()) or not bool(torch.isfinite(out).all()):
+                fail(f"fused_agg disagrees with reference_agg at N={N} K={K} rows={rows}")
+        del x, ref
     # gradient: autograd.Function (kernel forward) vs the plain version
     x = agg_inputs(256, 8, 195, 128, seed=5, dev=dev)
     grads = []
@@ -223,6 +248,87 @@ def pnp_fixture(dev):
         fail("PnP fixture did not recover the pose")
 
 
+def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str):
+    """Kernel, plain-version and bound times of the fused aggregation at the
+    query shapes (coarse K=8 and fine K=1 launches, N = keypoints; every
+    tile size, the default one reported) and at the render shape, with the
+    model's own weights. Returns its `kernels` entry."""
+    import torch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    C, W = cfg.backbone2d_fpn_dim, cfg.model_3d_hidden_dim
+    params = {k: v.detach() for k, v in
+              fa.extract_agg_params(model.model_3d, 3 + C).items()}
+    n_kp = cfg.matching.fine_num_3d_keypoints
+    n_sm = fa._sm_count(dev)
+    rd_widths = (params["rd_w1"].shape[1], params["rd_w2"].shape[1])
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_f32_ms": 0.0}
+    units = []
+    for N, K in ((n_kp, 8), (n_kp, 1)):
+        x = agg_inputs(N, K, 3 + C, W, seed=K, dev=dev, params=params)
+        rows_default = fa.tile_plan(N, K, n_sm)[0]
+        with torch.no_grad():
+            for rows in [r for r in fa.TILE_ROWS if r >= K]:
+                r_ms = device_ms(lambda: fa.launch(**x, rows=rows))
+                print(f"fused_agg N={N} K={K} rows={rows}: kernel {r_ms:.4f} ms"
+                      f"{' (default)' if rows == rows_default else ''}; {card}")
+            k_ms = device_ms(lambda: fa.launch(**x))
+            pack_ms = device_ms(lambda: fa.pack_agg_weights(params, 3 + C, x["freqs"].numel()))
+            p_ms = device_ms(lambda: fa.reference_agg(**x))
+        prod, other, nbytes = cost = agg_cost(N, K, 3 + C, W, params, x["freqs"])
+        f32_ms, b_ms, unit = agg_bounds(cost)
+        smem, stages = fa.smem_plan(rows_default, rows_default // K, K, 3 + C,
+                                    x["freqs"].numel(), *rd_widths)
+        if k_ms < b_ms:
+            fail(f"fused_agg N={N} K={K} reads faster than its bound ({k_ms} < {b_ms} ms)")
+        tot["ms"] += k_ms
+        tot["plain_ms"] += p_ms
+        tot["bound_ms"] += b_ms
+        tot["bound_f32_ms"] += f32_ms
+        units.append((b_ms, f"K={K}: {unit}"))
+        print(f"fused_agg N={N} K={K}: {rows_default}-row tiles ({smem} B shared memory, "
+              f"{stages} ring stages); kernel {k_ms:.4f} ms (of which weight packing "
+              f"{pack_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} "
+              f"({100 * b_ms / k_ms:.1f} %), FP32 bound {f32_ms:.4f} ms "
+              f"({prod / 1e9:.3f} GFLOP products, {other / 1e9:.3f} GFLOP other, "
+              f"{nbytes / 1e6:.2f} MB); {card}")
+    # render shape: N = 4096 rays x 64 samples, K = 8
+    x = agg_inputs(RENDER_N, RENDER_K, 3 + C, W, seed=3, dev=dev, params=params)
+    with torch.no_grad():
+        r_ms = device_ms(lambda: fa.launch(**x), iters=5)
+        r32_ms = device_ms(lambda: fa.launch(**x, rows=32), iters=5)
+        rp_ms = device_ms(lambda: fa.reference_agg(**x), iters=3)
+    cost = agg_cost(RENDER_N, RENDER_K, 3 + C, W, params, x["freqs"])
+    rf32_ms, rb_ms, r_unit = agg_bounds(cost)
+    r_rows = fa.tile_plan(RENDER_N, RENDER_K, n_sm)[0]
+    r_smem, r_stages = fa.smem_plan(r_rows, r_rows // RENDER_K, RENDER_K, 3 + C,
+                                    x["freqs"].numel(), *rd_widths)
+    if r_ms < rb_ms:
+        fail(f"fused_agg at the render shape reads faster than its bound ({r_ms} < {rb_ms} ms)")
+    print(f"fused_agg render N={RENDER_N} K={RENDER_K}: kernel {r_ms:.4f} ms "
+          f"({r_rows}-row tiles, {r_smem} B shared memory, {r_stages} ring stages; "
+          f"32-row tiles: {r32_ms:.4f} ms), "
+          f"plain {rp_ms:.4f} ms, bound {rb_ms:.4f} ms by {r_unit} "
+          f"({100 * rb_ms / r_ms:.1f} %), FP32 bound {rf32_ms:.4f} ms "
+          f"({cost[0] / 1e9:.1f} GFLOP products, {cost[1] / 1e9:.2f} GFLOP other, "
+          f"{cost[2] / 1e9:.3f} GB); {card}")
+    del x
+    print("times per query: ms/plain_ms/bound_ms sum the coarse (K=8) and fine "
+          "(K=1) launches; render_* are one launch at the render shape")
+    return {
+        "name": "fused_agg", "route": "cuda",
+        "source": "nerfloc_tpu_torch/csrc/fused_agg.cu",
+        "replaces": "nerfloc_tpu/ops/fused_agg.py:279",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": max(units)[1].split(": ")[1].split(" ")[0],
+        "bound_unit": "; ".join(u for _, u in units),
+        "bound_f32_ms": tot["bound_f32_ms"],
+        "library_ms": None,
+        "render_ms": r_ms, "render_plain_ms": rp_ms, "render_bound_ms": rb_ms,
+        "render_bound_f32_ms": rf32_ms,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -251,6 +357,9 @@ def main() -> int:
     t0 = time.perf_counter()
     native.build_all(["fused_agg"])
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    for line in native.build_report("fused_agg").splitlines():
+        if ("ptxas" in line or "spill" in line) and "Compile time" not in line:
+            print(f"build report: {line.strip()}")
 
     max_err = check_fused_agg(dev)
     small_query_vs_cpu(dev)
@@ -291,39 +400,7 @@ def main() -> int:
 
     pnp_fixture(dev)
 
-    # kernel times at the main path's shapes, with the model's own weights
-    C = cfg.backbone2d_fpn_dim
-    params = {k: v.detach() for k, v in
-              fa.extract_agg_params(model.model_3d, 3 + C).items()}
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    flops_all = bytes_all = 0
-    for N, K in ((n_kp, 8), (n_kp, 1)):
-        x = agg_inputs(N, K, 3 + C, cfg.model_3d_hidden_dim, seed=K, dev=dev,
-                       params=params)
-        with torch.no_grad():
-            k_ms = device_ms(lambda: fa.launch(**x))
-            p_ms = device_ms(lambda: fa.reference_agg(**x))
-        flops, nbytes = agg_cost(N, K, 3 + C, cfg.model_3d_hidden_dim, params, x["freqs"])
-        b_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        flops_all += flops
-        bytes_all += nbytes
-        tot["ms"] += k_ms
-        tot["plain_ms"] += p_ms
-        tot["bound_ms"] += b_ms
-        print(f"fused_agg N={N} K={K}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); {card}")
-    kernels = [{
-        "name": "fused_agg", "route": "cuda",
-        "source": "nerfloc_tpu_torch/csrc/fused_agg.cu",
-        "replaces": "nerfloc_tpu/ops/fused_agg.py:279",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": ("operations" if flops_all / PEAK_F32_FLOPS
-                     >= bytes_all / PEAK_BYTES_PER_S else "bytes"),
-        "library_ms": None,
-    }]
-    print("times per query: ms/plain_ms/bound_ms sum the coarse (K=8) and fine "
-          "(K=1) launches")
+    kernels = [time_fused_agg(model, cfg, dev, launches, max_err, card)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

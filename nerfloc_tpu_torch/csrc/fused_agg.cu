@@ -10,35 +10,91 @@
 //   pf    = base_mlp([nb_feat | emb | rdfc])                 3 layers, leaky
 //   q = mv @ wq / sqrt(32); k = pf @ wk; v = pf @ wv         4 heads of 32
 //   o = softmax_K(q . k) v;  y = o @ wfc + mv;  out = LayerNorm(y) (eps 1e-6)
+// With K = 1 the softmax weight is exactly 1, so o = v and the q and k
+// products are skipped.
 //
-// What bounds it on an H100: at the localization shapes (N=1024, K=8, W=128,
-// F=195) it does ~1.75 GFLOP over ~8 MB of inputs, i.e. ~200 FLOP/byte, so
-// it is bound by arithmetic, not by bytes. Design: one CTA per tile of T
-// samples (T*K <= 64 rows); the tile's activations live in shared memory as
-// a ping-pong pair of [rows, <=285] and [rows, 128] f32 buffers, so device
-// memory sees each input once and each output once. Weights (~0.55 MB, L2
-// resident) are staged through shared memory 32 rows at a time by all
-// threads at once, so each matrix product waits on L2 once per chunk, not
-// once per row of the weight matrix. Products are plain f32 FMA with a 4x8
-// register tile per thread, weights read as float4 (no TF32, no tensor
-// cores yet). The K-way softmax subtracts the max; LayerNorm uses warp
-// reductions.
-// Compile without fast-math: sin/cos arguments reach 2^9 * |off|.
+// What bounds it on an H100. Per neighbour row the seven matrix products
+// cost ~205 kFLOP against ~0.8 kB of input, so at every shape it is bound
+// by operations: by the tensor cores' TF32 rate (which 3xTF32 must spend
+// three times), at the query shapes (N=1024, K=8 and K=1) as at the render
+// shape (N=262144, K=8, 2.1M rows). Measured (tools/profile_fused_agg.py),
+// the products take about two thirds of a CTA's cycles and the CUDA-core
+// phases (prologue, attention, LayerNorm) the rest; each k-step's MMAs are
+// waited for before the next is issued, so neither reaches its unit's
+// peak. The weight stream (~0.55 MB from L2 per CTA) never makes a
+// consumer wait.
+//
+// Design:
+// - Products on the tensor cores at f32 accuracy with the 3xTF32 split
+//   (big = rna(x), small = rna(x - big); accumulate a_s*b_b + a_b*b_s +
+//   a_b*b_b in f32, small terms first): wgmma m64n128k8 with A from
+//   registers for 64-row tiles (the render shape), mma.sync m16n8k8 for
+//   16/32-row tiles (the query shapes) and the 16-row q and o products.
+// - Weights reach shared memory through a ring of 8 KB stages filled by
+//   one producer warp with cp.async.bulk and mbarriers (full/empty pairs).
+//   The weight stream is the same for every CTA, so the producer runs
+//   ahead across layer boundaries and during the prologue. The wrapper
+//   packs the weights once per call into the ring's order: for mma.sync
+//   in B-fragment order (each lane reads its 8 values of a k-step with two
+//   conflict-free 16-byte loads), for wgmma as each k-step's big and small
+//   halves in its core-matrix layout (twice the bytes: kept off the query
+//   tiles, whose CTAs each stream all weights for only 16-32 rows).
+// - Four consumer warps share a tile of 16*MT rows; warp w owns output
+//   columns [32w, 32w+32) of every 128-wide product. A tile's
+//   activations stay in shared memory; outputs are staged in registers
+//   until every warp has read the layer's input, so the x_in region then
+//   holds the [rows, 128] tiles A and B. Their row stride (132) and the
+//   embedding's are 4 mod 8 floats, so A-fragment loads are free of bank
+//   conflicts (the features' odd stride F costs 2-way conflicts in fc0's
+//   first k-steps only).
+// - Tile rows are 16, 32 or 64 (MT in {1,2,4}), picked by the wrapper
+//   from N and K; two CTAs fit on an SM, so one CTA's CUDA-core phases
+//   overlap the other's products. (128-row CTAs of two consumer groups,
+//   with half the weight traffic per row, were slower at every shape
+//   measured.)
+// - The embedding phases and sin/cos (accurate sincosf, no fast-math:
+//   phases reach 2^9 * |off|), the ray-diff MLP, the K-way softmax (max
+//   subtracted), the residual and the LayerNorm stay f32 on the CUDA cores.
+// - A tile's neighbour features are one contiguous block in device memory:
+//   one cp.async.bulk copies it (rows kept at stride F) while the CUDA
+//   cores compute the row geometry and embedding into a second region;
+//   fc0 reads its first ceil(F/8) k-steps from the one, the rest from the
+//   other.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsMax = 64;        // T*K rows of one CTA
+constexpr int kHd = 128;             // attention width (4 heads x 32); W pads to it
+constexpr int kCons = 4;             // consumer warps (the producer warp is the fifth)
+constexpr int kConsThreads = kCons * 32;
 constexpr int kHeads = 4;
 constexpr int kDk = 32;
-constexpr int kHd = kHeads * kDk;   // 128
-constexpr int kLdh = kHd + 1;       // odd row stride of 128-wide tiles
-constexpr int kMaxRd1 = kLdh - 4;  // rdiff (4) + h (RD1) share a row of B
-constexpr int kChunk = 32;          // weight rows staged per step
+constexpr int kLdh = kHd + 4;        // row stride of [rows, 128] tiles (4 mod 8)
+constexpr int kKStep = 8;            // MMA depth
+// A ring stage holds two k-steps of f32 weights in the mma.sync fragment
+// order, or (64-row tiles) one k-step's big and small TF32 tiles in the
+// core-matrix layout wgmma reads: 8 KB either way.
+constexpr int kStageK = 2;           // k-steps per stage, mma.sync layout
+constexpr int kTile = kKStep * kHd;  // floats of one k-step's [8, 128] tile
+constexpr int kStageFloats = kStageK * kTile;                   // 2048 floats
+constexpr uint32_t kStageBytes = kStageFloats * sizeof(float);  // 8 KB
+// wgmma B descriptor strides of the core-matrix layout (no swizzle): core
+// matrices are 8 n-rows x 4 k (128 B); k-halves 2 KB apart, n-groups 128 B.
+constexpr uint32_t kLbo = 16 * 128;
+constexpr uint32_t kSbo = 128;
+constexpr int kMaxStages = 8;
+constexpr int kMaxRd = 32;           // ray-diff MLP widths (RD1, RD2) held in registers
+constexpr int kSmemMax = 232448;     // bytes of shared memory a CTA may use
+constexpr int kSmemHalf = 115712;    // ... with two CTAs on an SM (1 KB reserved each)
 constexpr float kLeak = 0.01f;
 constexpr float kLnEps = 1e-6f;
+constexpr long long kSpinLimit = 1LL << 34;  // ~10 s of cycles: a stuck wait traps
+
+// Products in the order the ring streams them (and the packed buffer holds
+// them): fc0 [8 ks0p, 128], then six [128, 128].
+enum { kFc0, kFc1, kFc2, kWv, kWk, kWq, kWfc, kProducts };
 
 struct Args {
   const float* xyz;      // [N, 3]
@@ -51,14 +107,12 @@ struct Args {
   const float* freqs;    // [NF]
   const float* rd_w1; const float* rd_b1;  // [4, RD1], [RD1]
   const float* rd_w2; const float* rd_b2;  // [RD1, RD2], [RD2]
-  const float* w0; const float* b0;        // [Fin, W] (kernel row order), [W]
-  const float* w1; const float* b1;        // [W, W], [W]
-  const float* w2; const float* b2;        // [W, W], [W]
-  const float* wq; const float* wk; const float* wv;  // [W, 128]
-  const float* wfc;                        // [128, W]
+  const float* wpack;                      // packed products (ops/fused_agg.py)
+  const float* b0; const float* b1; const float* b2;  // [W]
   const float* ln_s; const float* ln_b;    // [W]
   float* out;                              // [N, W]
-  int N, K, F, W, NF, RD1, RD2, T, dir_stride, lda;
+  int N, K, F, W, NF, RD1, RD2, T, dir_stride;
+  int ks_f, ks_e, ks0p, lde, feat_floats, region, q_rows, nst, rdw_floats;
   float q_scale;
 };
 
@@ -70,115 +124,561 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Y[r, c] = act(sum_k X[r, k] * Wt[k, c] + bias[c]) * post for r < rows,
-// c < nout (rows <= 64, nout <= 128). X, Y and the staging buffer WS
-// ([kChunk, 128], 16-byte aligned) live in shared memory; Wt is a row-major
-// [kin, nout] matrix in device memory. Thread (tx, ty) owns rows ty + 16 i
-// (i < 4) and columns 4 tx + j, 64 + 4 tx + j (j < 4). Every thread of the
-// CTA must call it (it synchronizes); the caller synchronizes before Y is
-// read by other threads.
-template <bool kLeaky>
-__device__ void matmul(const float* X, int ldx, int rows, int kin,
-                       const float* __restrict__ Wt, int nout,
-                       const float* __restrict__ bias, float post,
-                       float* Y, int ldy, float* WS) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < kin; k0 += kChunk) {
-    const int kc = min(kChunk, kin - k0);
-    __syncthreads();  // X complete; previous chunk of WS consumed
-    const float* src = Wt + static_cast<size_t>(k0) * nout;
-    for (int idx = threadIdx.x; idx < kc * nout; idx += kThreads) {
-      const int kk = idx / nout;
-      WS[kk * kHd + (idx - kk * nout)] = __ldg(src + idx);
-    }
-    __syncthreads();
-    if (ty < rows) {
-      for (int kk = 0; kk < kc; ++kk) {
-        float xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + 16 * i;
-          xv[i] = r < rows ? X[r * ldx + k0 + kk] : 0.f;
-        }
-        const float4 wa = *reinterpret_cast<const float4*>(WS + kk * kHd + 4 * tx);
-        const float4 wb = *reinterpret_cast<const float4*>(WS + kk * kHd + 64 + 4 * tx);
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-      }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// consumer-only barrier (the producer warp never joins it)
+__device__ __forceinline__ void bar_consumers(int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// ---- mbarrier ring --------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kSpinLimit) __trap();  // a phase error faults, never hangs
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Consumer side of the ring: stage `it` of the stream sits in slot
+// it % nst and completes phase (it / nst) & 1 of its full barrier.
+struct Ring {
+  float* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  int nst;
+  int slot;
+  uint32_t phase;
+
+  __device__ __forceinline__ const float* acquire() {
+    mbar_wait(full + slot, phase);
+    return buf + slot * kStageFloats;
+  }
+  __device__ __forceinline__ void release(int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+    if (++slot == nst) {
+      slot = 0;
+      phase ^= 1u;
     }
   }
+};
+
+// ---- 3xTF32 tensor-core products --------------------------------------------
+
+// cvt.rna.tf32.f32 (nearest, ties away from zero) as two integer ops on
+// the bit pattern: the same result for every finite x, in fewer issue
+// slots than the cvt instruction takes on an H100.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A operand of a product: k-steps [0, nks1) from x1 (row stride ld1,
+// columns >= kv1 read as 0), the rest from x2 (stride ld2); nks_c k-steps
+// are computed, the ring may hold more (zero padding).
+struct Operand {
+  const float* x1;
+  int ld1, kv1, nks1;
+  const float* x2;
+  int ld2, nks_c;
+};
+
+__device__ __forceinline__ Operand tile_operand(const float* x, int ld) {
+  return Operand{x, ld, 1 << 30, 1 << 30, nullptr, 0, kHd / kKStep};
+}
+
+// acc[mt][j] = X[16 mt .. +16, :] @ Wkn[:, 32 wn + 8 j .. +8] for
+// mt < mt_n (all MT when kFull, with no branch), with nks k-steps of
+// weights streamed through the ring (a multiple of kStageK), with
+// mma.sync. kTwo: the operand has two regions. kPre: the ring holds the
+// pre-split core-matrix layout of 64-row tiles. Every consumer warp calls
+// it for every product, also with mt_n = 0, so that each stage is released
+// by all of them.
+template <int MT, bool kFull, bool kTwo, bool kPre>
+__device__ __forceinline__ void gemm(float (&acc)[MT][4][4], const Operand& x, int mt_n,
+                                     int nks, Ring& ring, int wn, int lane) {
+  constexpr int kSteps = kPre ? 1 : kStageK;
+  const int g = lane >> 2;
+  const int t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = (j < 4 ? 0 : 64) + 4 * tx + (j & 3);
-      if (c >= nout) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += __ldg(bias + c);
-      if (kLeaky) v = leaky(v);
-      Y[r * ldy + c] = v * post;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  for (int s = 0; s < nks; s += kSteps) {
+    const float* ws = ring.acquire();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int ks = s + kk;
+      if (kTwo && ks >= x.nks_c) continue;
+      uint32_t bb[8], bs[8];
+      if constexpr (kPre) {
+        // b0 of n-tile jj: core matrix (k-half 0, n-group jj), row g, col t;
+        // lanes read 32 consecutive floats
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int jj = 4 * wn + j;
+          bb[2 * j] = __float_as_uint(ws[jj * 32 + lane]);
+          bb[2 * j + 1] = __float_as_uint(ws[(16 + jj) * 32 + lane]);
+          bs[2 * j] = __float_as_uint(ws[kTile + jj * 32 + lane]);
+          bs[2 * j + 1] = __float_as_uint(ws[kTile + (16 + jj) * 32 + lane]);
+        }
+      } else {
+        // n-tiles j = 0, 1 of this warp, then j = 2, 3: 16 bytes a lane,
+        // consecutive lanes on consecutive addresses (no bank conflicts)
+        const float4* bp = reinterpret_cast<const float4*>(ws + kk * kTile + wn * 256) + lane;
+        const float4 p0 = bp[0];
+        const float4 p1 = bp[32];
+        const float bv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) split_tf32(bv[i], bb[i], bs[i]);
+      }
+      const bool first = !kTwo || ks < x.nks1;
+      const float* base = first ? x.x1 + ks * kKStep : x.x2 + (ks - x.nks1) * kKStep;
+      const int ld = first ? x.ld1 : x.ld2;
+      const int kv = kTwo && first ? x.kv1 - ks * kKStep : kKStep;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (kFull || mt < mt_n) {
+          const float* xr = base + (16 * mt + g) * ld + t;
+          const float av[4] = {t < kv ? xr[0] : 0.f, t < kv ? xr[8 * ld] : 0.f,
+                               t + 4 < kv ? xr[4] : 0.f, t + 4 < kv ? xr[8 * ld + 4] : 0.f};
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(av[i], ab[i], as[i]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[mt][j], as, bb[2 * j], bb[2 * j + 1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[mt][j], ab, bs[2 * j], bs[2 * j + 1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[mt][j], ab, bb[2 * j], bb[2 * j + 1]);
+        }
+      }
+    }
+    ring.release(lane);
+  }
+}
+
+// ---- wgmma for 64-row tiles ----------------------------------------------
+
+__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+  return ((smem_u32(tile) & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(kLbo >> 4) << 16) |
+         (static_cast<uint64_t>(kSbo >> 4) << 32);
+}
+
+// d[64x128] += a[64x8] (registers, tf32) @ B[8x128] (shared, tf32)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d = X[64, :] @ Wkn[:, 128] for the four consumer warps as one
+// warpgroup: warp w holds rows 16w..16w+15 of A in registers (the mma.sync
+// fragment layout), split big/small; each stage's big and small B tiles
+// come from the ring. Three wgmma per k-step, small terms first.
+template <bool kTwo>
+__device__ __forceinline__ void gemm_wg(float (&d)[64], const Operand& x, int nks, Ring& ring,
+                                        int warp, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    const float* ws = ring.acquire();
+    // A loads, fence, commit and wait on every k-step, only the MMAs
+    // skipped on fc0's zero padding: faster on an H100 than keeping all of
+    // it under the branch
+    const bool first = !kTwo || ks < x.nks1;
+    const float* base = first ? x.x1 + ks * kKStep : x.x2 + (ks - x.nks1) * kKStep;
+    const int ld = first ? x.ld1 : x.ld2;
+    const int kv = kTwo && first ? x.kv1 - ks * kKStep : kKStep;
+    const float* xr = base + (16 * warp + g) * ld + t;
+    const float av[4] = {t < kv ? xr[0] : 0.f, t < kv ? xr[8 * ld] : 0.f,
+                         t + 4 < kv ? xr[4] : 0.f, t + 4 < kv ? xr[8 * ld + 4] : 0.f};
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(av[i], ab[i], as[i]);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    if (!kTwo || ks < x.nks_c) {
+      wgmma_tf32(d, as, b_desc(ws));
+      wgmma_tf32(d, ab, b_desc(ws + kTile));
+      wgmma_tf32(d, ab, b_desc(ws));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    ring.release(lane);
+  }
+}
+
+// store() for gemm_wg's accumulators: warp w's rows 16w + g (+8), n-tile j
+// at d[4j .. 4j + 3] as in the mma.sync layout.
+__device__ __forceinline__ void store_wg(const float (&d)[64], float* Y, int ldy,
+                                         const float* __restrict__ bias, int nb, bool act,
+                                         float post, int warp, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = j * 8 + 2 * t;
+    float bx = 0.f, by = 0.f;
+    if (bias != nullptr) {
+      if (c < nb) bx = __ldg(bias + c);
+      if (c + 1 < nb) by = __ldg(bias + c + 1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float vx = d[4 * j + 2 * h] + bx;
+      float vy = d[4 * j + 2 * h + 1] + by;
+      if (act) {
+        vx = leaky(vx);
+        vy = leaky(vy);
+      }
+      const int r = 16 * warp + g + 8 * h;
+      *reinterpret_cast<float2*>(Y + r * ldy + c) = make_float2(vx * post, vy * post);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_agg_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = a.K, F = a.F, W = a.W, T = a.T, NF = a.NF;
-  const int rows = T * K;
+// Y[r, c] = act(acc + bias[c]) * post for the fragment rows of gemm();
+// bias is read for c < nb (zero beyond), so padded columns stay 0.
+template <int MT>
+__device__ __forceinline__ void store(const float (&acc)[MT][4][4], float* Y, int ldy, int mt_n,
+                                      const float* __restrict__ bias, int nb, bool act, float post,
+                                      int wn, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt >= mt_n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn * 32 + j * 8 + 2 * t;
+      float bx = 0.f, by = 0.f;
+      if (bias != nullptr) {
+        if (c < nb) bx = __ldg(bias + c);
+        if (c + 1 < nb) by = __ldg(bias + c + 1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float vx = acc[mt][j][2 * h] + bx;
+        float vy = acc[mt][j][2 * h + 1] + by;
+        if (act) {
+          vx = leaky(vx);
+          vy = leaky(vy);
+        }
+        const int r = 16 * mt + g + 8 * h;
+        *reinterpret_cast<float2*>(Y + r * ldy + c) = make_float2(vx * post, vy * post);
+      }
+    }
+  }
+}
+
+// Residual + LayerNorm over the first W (<= 128) columns, one warp per
+// sample, the row held in registers (4 values a lane).
+__device__ __forceinline__ void layer_norm(const Args& a, const float* Y, int ldy,
+                                           const float* R, int ldr, int n0, int t_valid, int warp,
+                                           int nwarps, int lane) {
+  const int W = a.W;
+  for (int t = warp; t < t_valid; t += nwarps) {
+    const float* y = Y + t * ldy;
+    const float* res = R + static_cast<size_t>(t) * ldr;
+    float v[kHd / 32];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kHd / 32; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < W ? y[c] + res[c] : 0.f;
+      s += v[i];
+    }
+    const float mean = warp_sum(s) / W;
+    float var = 0.f;
+#pragma unroll
+    for (int i = 0; i < kHd / 32; ++i) {
+      const float d = lane + 32 * i < W ? v[i] - mean : 0.f;
+      var += d * d;
+    }
+    const float inv = 1.f / sqrtf(warp_sum(var) / W + kLnEps);
+    float* orow = a.out + static_cast<size_t>(n0 + t) * W;
+#pragma unroll
+    for (int i = 0; i < kHd / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c < W) orow[c] = (v[i] - mean) * inv * __ldg(a.ln_s + c) + __ldg(a.ln_b + c);
+    }
+  }
+}
+
+// Lq=1 attention over the K neighbours: one warp per (sample, head), lane =
+// dimension; the scores of 8 keys at a time are reduced together (online
+// softmax across groups of 8, the max subtracted). o overwrites q in place
+// (each lane reads its q before writing its o).
+__device__ __forceinline__ void attention(float* Q, const float* Kt, const float* Vt, int ldx,
+                                          int K, int t_valid, int warp, int nwarps, int lane) {
+  for (int task = warp; task < t_valid * kHeads; task += nwarps) {
+    const int t = task / kHeads;
+    const int col = (task - t * kHeads) * kDk + lane;
+    const float qd = Q[t * kLdh + col];
+    float m = -3.402823466e38f, den = 0.f, o = 0.f;
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      float sc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sc[j] = k0 + j < K ? qd * Kt[(t * K + k0 + j) * ldx + col] : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], off);
+      float mc = m;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (k0 + j < K) mc = fmaxf(mc, sc[j]);
+      const float rescale = expf(m - mc);
+      den *= rescale;
+      o *= rescale;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (k0 + j < K) {
+          const float e = expf(sc[j] - mc);
+          den += e;
+          o = fmaf(e, Vt[(t * K + k0 + j) * ldx + col], o);
+        }
+      }
+      m = mc;
+    }
+    Q[t * kLdh + col] = o / den;
+  }
+}
+
+// One 64/32/16-row product of the chain, Y = act(X @ Wkn + bias): wgmma
+// for 64-row tiles, mma.sync otherwise. in_place: Y overwrites the
+// operand's region, so every warp must have read it first.
+template <int MT, bool kTwo>
+__device__ __forceinline__ void product(const Operand& x, int nks, Ring& ring, float* Y,
+                                        const float* bias, int nb, bool act, bool in_place,
+                                        int warp, int lane) {
+  if constexpr (MT == 4) {
+    float d[64];
+    gemm_wg<kTwo>(d, x, nks, ring, warp, lane);
+    if (in_place) bar_consumers(kConsThreads);
+    store_wg(d, Y, kLdh, bias, nb, act, 1.f, warp, lane);
+  } else {
+    float acc[MT][4][4];
+    gemm<MT, true, kTwo, false>(acc, x, MT, nks, ring, warp, lane);
+    if (in_place) bar_consumers(kConsThreads);
+    store<MT>(acc, Y, kLdh, MT, bias, nb, act, 1.f, warp, lane);
+  }
+}
+
+// Producer: one lane streams every stage the consumers will read, in order
+// (kSteps k-steps a stage).
+template <int kSteps>
+__device__ void produce(const Args& a, float* ring_buf, uint64_t* full, uint64_t* empty) {
+  int slot = 0;
+  uint32_t phase = 0;
+  const float* src = a.wpack;
+  for (int p = 0; p < kProducts; ++p) {
+    const int nstage = (p == kFc0 ? a.ks0p : kHd / kKStep) / kSteps;
+    if (a.K == 1 && (p == kWk || p == kWq)) {  // no scores with one neighbour
+      src += nstage * kStageFloats;
+      continue;
+    }
+    for (int s = 0; s < nstage; ++s) {
+      mbar_wait(empty + slot, phase ^ 1u);
+      mbar_expect_tx(full + slot, kStageBytes);
+      bulk_load(ring_buf + slot * kStageFloats, src, kStageBytes, full + slot);
+      src += kStageFloats;
+      if (++slot == a.nst) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Args a) {
+  constexpr int kRows = 16 * MT;           // rows (= T*K, padded) of one CTA
+  constexpr bool kWgmma = MT == 4;          // 64-row tiles: wgmma products
+  extern __shared__ __align__(128) float smem[];
+  const int K = a.K, F = a.F, W = a.W, T = a.T, NF = a.NF, lde = a.lde;
+  const int RD1 = a.RD1, RD2 = a.RD2;
+
+  float* ring_buf = smem;                         // [nst, kStageFloats]
+  float* FEAT = ring_buf + a.nst * kStageFloats;  // [kRows, F] + pad; later A | B
+  float* EMB = FEAT + a.feat_floats;              // [kRows, lde]
+  float* MV = FEAT + a.region;                    // [q_rows, kLdh] (K > 1)
+  float* Q = MV + a.q_rows * kLdh;                // [q_rows, kLdh] (K > 1)
+  float* RDW = Q + a.q_rows * kLdh;               // ray-diff MLP weights
+  uint64_t* full = reinterpret_cast<uint64_t*>(RDW + a.rdw_floats);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* feat_bar = empty + kMaxStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < a.nst; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kCons);
+    }
+    mbar_init(feat_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kCons) {
+    if (lane == 0) produce<kWgmma ? 1 : kStageK>(a, ring_buf, full, empty);
+    return;
+  }
+
   const int n0 = blockIdx.x * T;
   const int t_valid = min(T, a.N - n0);
   const int rows_valid = t_valid * K;
-  const int lda = a.lda;
-  const int size_a = rows * max(lda, 2 * kLdh);
+  const int off_col = 0;  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0]
+  const int sin_col = 3;
+  const int cos_col = 3 + 3 * NF;
+  const int rd_col = 3 + 6 * NF;
+  const int emb_end = rd_col + RD2;
 
-  float* WS = smem;                 // staged weight rows [kChunk, 128]
-  float* A = WS + kChunk * kHd;     // x_in [rows, lda]; later h1, then k | v
-  float* B = A + size_a;            // scratch, h0, pf [rows, kLdh]; later o
-  float* MV = B + rows * kLdh;      // mv [T, kLdh]
-  float* Q = MV + T * kLdh;         // q [T, kLdh]; later o @ wfc
-  const int tid = threadIdx.x;
-  const int off_col = F;            // [off(3) | sin(3NF) | cos(3NF) | rdfc]
-  const int sin_col = F + 3;
-  const int cos_col = F + 3 + 3 * NF;
-  const int rd_col = F + 3 + 6 * NF;
+  // 1. neighbour features: the 16-byte-aligned body of the tile's block in
+  //    one bulk copy, the <= 3 floats at either end by hand; zeros after the
+  //    valid rows (fc0 reads up to 8 ceil(F/8) columns of the last row). The
+  //    rows start at FX, shifted so that source and copy align alike.
+  const float* feat = a.nb_feat + static_cast<size_t>(n0) * K * F;
+  const int nfeat = rows_valid * F;
+  const int head = min(static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(feat) & 15)) & 15) / 4),
+                       nfeat);
+  const int body = (nfeat - head) & ~3;
+  float* FX = FEAT + ((4 - head) & 3);
+  if (tid == 0) {
+    mbar_expect_tx(feat_bar, body * sizeof(float));
+    if (body > 0) bulk_load(FX + head, feat + head, body * sizeof(float), feat_bar);
+  }
+  if (tid < head) FX[tid] = feat[tid];
+  if (tid < nfeat - head - body) FX[head + body + tid] = feat[head + body + tid];
+  for (int i = nfeat + tid; i < kRows * F + kKStep; i += kConsThreads) FX[i] = 0.f;
+  for (int r = warp; r < kRows; r += kCons)
+    for (int c = emb_end + lane; c < kKStep * a.ks_e; c += 32) EMB[r * lde + c] = 0.f;
+  // ray-diff MLP weights [rd_w1 | rd_b1 | rd_w2 | rd_b2], then mv: cp.async
+  // (copies through registers would wait for device memory one by one)
+  float* w1s = RDW;
+  float* b1s = w1s + 4 * RD1;
+  float* w2s = b1s + RD1;
+  float* b2s = w2s + RD1 * RD2;
+  for (int i = tid; i < 4 * RD1; i += kConsThreads) cp_async4(w1s + i, a.rd_w1 + i);
+  for (int i = tid; i < RD1; i += kConsThreads) cp_async4(b1s + i, a.rd_b1 + i);
+  for (int i = tid; i < RD1 * RD2; i += kConsThreads) cp_async4(w2s + i, a.rd_w2 + i);
+  for (int i = tid; i < RD2; i += kConsThreads) cp_async4(b2s + i, a.rd_b2 + i);
+  cp_async_commit();
+  for (int t = warp; t < a.q_rows; t += kCons) {
+    const float* mr = a.mv + static_cast<size_t>(n0 + t) * W;
+    for (int c = lane; c < kHd; c += 32) {
+      if (t < t_valid && c < W)
+        cp_async4(MV + t * kLdh + c, mr + c);
+      else
+        MV[t * kLdh + c] = 0.f;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<1>();   // the MLP weights; mv may still be in flight
+  bar_consumers(kConsThreads);
 
-  // 1. gathered neighbour features (the tile's rows are contiguous), mv
-  const size_t feat_base = static_cast<size_t>(n0) * K * F;
-  for (int idx = tid; idx < rows * F; idx += kThreads) {
-    const int r = idx / F;
-    A[r * lda + (idx - r * F)] = r < rows_valid ? a.nb_feat[feat_base + idx] : 0.f;
-  }
-  for (int idx = tid; idx < T * W; idx += kThreads) {
-    const int t = idx / W;
-    const int c = idx - t * W;
-    MV[t * kLdh + c] = t < t_valid ? a.mv[static_cast<size_t>(n0 + t) * W + c] : 0.f;
-  }
-  // 2. per-row offsets (into x_in) and ray-diff inputs (into B[r, 0:4])
-  if (tid < rows) {
+  // 2. one thread a row: offsets, rdiff and the ray-diff MLP's hidden layer
+  //    h, parked in the row's sin columns (RD1 <= 6 NF) until the embedding
+  //    is written
+  if (tid < kRows) {
     const int r = tid;
     float off[3] = {0.f, 0.f, 0.f};
     float rdiff[4] = {0.f, 0.f, 0.f, 0.f};
     if (r < rows_valid) {
-      const int t = r / K;
-      const int n = n0 + t;
-      const size_t nk = static_cast<size_t>(n) * K + (r - t * K);
+      const int tt = r / K;
+      const int n = n0 + tt;
+      const size_t nk = static_cast<size_t>(n) * K + (r - tt * K);
       const float sc = __ldg(a.scale);
       float d3[3], nb[3], diff[3];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        off[d] = (a.xyz[n * 3 + d] - a.nb_xyz[nk * 3 + d]) / sc;
+        off[d] = (a.xyz[static_cast<size_t>(n) * 3 + d] - a.nb_xyz[nk * 3 + d]) / sc;
         d3[d] = a.dir[static_cast<size_t>(n) * a.dir_stride + d];
         nb[d] = a.nb_dir[nk * 4 + d];
         diff[d] = d3[d] - nb[d];
@@ -190,134 +690,182 @@ fused_agg_kernel(const Args a) {
       rdiff[2] = diff[2] / den;
       rdiff[3] = d3[0] * nb[0] + d3[1] * nb[1] + d3[2] * nb[2];
     }
+    float* er = EMB + r * lde;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) A[r * lda + off_col + d] = off[d];
+    for (int d = 0; d < 3; ++d) er[off_col + d] = off[d];
+    for (int m = 0; m < RD1; ++m) {
+      float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) B[r * kLdh + i] = rdiff[i];
-  }
-  __syncthreads();
-  // 3. frequency embedding (f32 phases) and the ray-diff MLP's first layer
-  for (int idx = tid; idx < rows * 3 * NF; idx += kThreads) {
-    const int r = idx / (3 * NF);
-    const int j = idx - r * 3 * NF;
-    float* xr = A + r * lda;
-    float s, c;
-    sincosf(xr[off_col + j % 3] * __ldg(a.freqs + j / 3), &s, &c);
-    xr[sin_col + j] = s;
-    xr[cos_col + j] = c;
-  }
-  for (int idx = tid; idx < rows * a.RD1; idx += kThreads) {
-    const int r = idx / a.RD1;
-    const int m = idx - r * a.RD1;
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s = fmaf(B[r * kLdh + i], __ldg(a.rd_w1 + i * a.RD1 + m), s);
-    B[r * kLdh + 4 + m] = leaky(s + __ldg(a.rd_b1 + m));
-  }
-  __syncthreads();
-  for (int idx = tid; idx < rows * a.RD2; idx += kThreads) {
-    const int r = idx / a.RD2;
-    const int m = idx - r * a.RD2;
-    float s = 0.f;
-    for (int i = 0; i < a.RD1; ++i)
-      s = fmaf(B[r * kLdh + 4 + i], __ldg(a.rd_w2 + i * a.RD2 + m), s);
-    A[r * lda + rd_col + m] = leaky(s + __ldg(a.rd_b2 + m));
-  }
-
-  // 4. base_mlp and the attention projections (each matmul synchronizes
-  // before it reads its input)
-  const int fin = rd_col + a.RD2;
-  matmul<true>(A, lda, rows, fin, a.w0, W, a.b0, 1.f, B, kLdh, WS);
-  matmul<false>(MV, kLdh, T, W, a.wq, kHd, nullptr, a.q_scale, Q, kLdh, WS);
-  matmul<true>(B, kLdh, rows, W, a.w1, W, a.b1, 1.f, A, kLdh, WS);
-  matmul<true>(A, kLdh, rows, W, a.w2, W, a.b2, 1.f, B, kLdh, WS);
-  float* KK = A;
-  float* VV = A + rows * kLdh;
-  matmul<false>(B, kLdh, rows, W, a.wk, kHd, nullptr, 1.f, KK, kLdh, WS);
-  matmul<false>(B, kLdh, rows, W, a.wv, kHd, nullptr, 1.f, VV, kLdh, WS);
-  __syncthreads();
-
-  // 5. Lq=1 attention over the K neighbours: one warp per (sample, head)
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float* O = B;
-  for (int task = warp; task < T * kHeads; task += kThreads / 32) {
-    const int t = task / kHeads;
-    const int col = (task - t * kHeads) * kDk + lane;
-    const float qd = Q[t * kLdh + col];
-    float m = -3.402823466e38f;
-    for (int k = 0; k < K; ++k)
-      m = fmaxf(m, warp_sum(qd * KK[(t * K + k) * kLdh + col]));
-    float den = 0.f, acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float e = expf(warp_sum(qd * KK[(t * K + k) * kLdh + col]) - m);
-      den += e;
-      acc = fmaf(e, VV[(t * K + k) * kLdh + col], acc);
-    }
-    O[t * kLdh + col] = acc / den;
-  }
-  matmul<false>(O, kLdh, T, kHd, a.wfc, W, nullptr, 1.f, Q, kLdh, WS);
-  __syncthreads();
-
-  // 6. residual + LayerNorm, one warp per sample
-  for (int t = warp; t < t_valid; t += kThreads / 32) {
-    float s = 0.f;
-    for (int c = lane; c < W; c += 32) s += Q[t * kLdh + c] + MV[t * kLdh + c];
-    const float mean = warp_sum(s) / W;
-    float v = 0.f;
-    for (int c = lane; c < W; c += 32) {
-      const float y = Q[t * kLdh + c] + MV[t * kLdh + c] - mean;
-      v += y * y;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(v) / W + kLnEps);
-    float* orow = a.out + static_cast<size_t>(n0 + t) * W;
-    for (int c = lane; c < W; c += 32) {
-      const float y = Q[t * kLdh + c] + MV[t * kLdh + c] - mean;
-      orow[c] = y * inv * __ldg(a.ln_s + c) + __ldg(a.ln_b + c);
+      for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], w1s[i * RD1 + m], s);
+      er[sin_col + m] = leaky(s + b1s[m]);
     }
   }
+  bar_consumers(kConsThreads);
+  // 3. the ray-diff MLP's output layer: one warp a row, lane n < RD2 holds
+  //    column n of rd_w2 in registers
+  {
+    float w2c[kMaxRd];
+#pragma unroll
+    for (int m = 0; m < kMaxRd; ++m) w2c[m] = (m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f;
+    const float b2c = lane < RD2 ? b2s[lane] : 0.f;
+    for (int r = warp; r < kRows; r += kCons) {
+      const float* h = EMB + r * lde + sin_col;
+      float s = b2c;
+#pragma unroll
+      for (int m = 0; m < kMaxRd; ++m)
+        if (m < RD1) s = fmaf(h[m], w2c[m], s);
+      if (lane < RD2) EMB[r * lde + rd_col + lane] = leaky(s);
+    }
+  }
+  bar_consumers(kConsThreads);
+  // 4. frequency embedding (f32 phases, accurate sincosf), one warp a row
+  for (int r = warp; r < kRows; r += kCons) {
+    float* er = EMB + r * lde;
+    for (int j = lane; j < 3 * NF; j += 32) {
+      float sn, cs;
+      sincosf(er[off_col + j % 3] * __ldg(a.freqs + j / 3), &sn, &cs);
+      er[sin_col + j] = sn;
+      er[cos_col + j] = cs;
+    }
+  }
+  cp_async_wait<0>();
+  mbar_wait(feat_bar, 0);
+  bar_consumers(kConsThreads);
+
+  // 5. base_mlp and the value projection on the tensor cores; once fc0 has
+  //    read x_in, its region holds A and B, two [kRows, 128] tiles
+  float* A = FEAT;
+  float* B = FEAT + kRows * kLdh;
+  const Operand opA = tile_operand(A, kLdh);
+  const Operand opB = tile_operand(B, kLdh);
+  constexpr int kKs = kHd / kKStep;
+  Ring ring{ring_buf, full, empty, a.nst, 0, 0u};
+  const Operand x_in{FX, F, F, a.ks_f, EMB, lde, a.ks_f + a.ks_e};
+  product<MT, true>(x_in, a.ks0p, ring, A, a.b0, W, true, true, warp, lane);
+  bar_consumers(kConsThreads);
+  product<MT, false>(opA, kKs, ring, B, a.b1, W, true, false, warp, lane);
+  bar_consumers(kConsThreads);
+  product<MT, false>(opB, kKs, ring, A, a.b2, W, true, false, warp, lane);    // pf
+  bar_consumers(kConsThreads);
+  product<MT, false>(opA, kKs, ring, B, nullptr, 0, false, false, warp, lane);  // v
+
+  if (K == 1) {
+    // 6'. one neighbour: o = v; y = v @ wfc; residual from device memory
+    bar_consumers(kConsThreads);
+    product<MT, false>(opB, kKs, ring, A, nullptr, 0, false, false, warp, lane);
+    bar_consumers(kConsThreads);
+    layer_norm(a, A, kLdh, a.mv + static_cast<size_t>(n0) * W, W, n0, t_valid, warp, kCons,
+               lane);
+    return;
+  }
+
+  // 6. keys (over pf, in place) and queries (16-row tiles of mv, mma.sync)
+  product<MT, false>(opA, kKs, ring, A, nullptr, 0, false, true, warp, lane);  // k
+  float acc[MT][4][4];
+  const int mt_q = a.q_rows / 16;
+  gemm<MT, false, false, kWgmma>(acc, tile_operand(MV, kLdh), mt_q, kKs, ring, warp, lane);
+  store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, a.q_scale, warp, lane);
+  bar_consumers(kConsThreads);
+
+  // 7. Lq=1 attention over the K neighbours
+  attention(Q, A, B, kLdh, K, t_valid, warp, kCons, lane);
+  bar_consumers(kConsThreads);
+
+  // 8. output projection, residual and LayerNorm
+  gemm<MT, false, false, kWgmma>(acc, tile_operand(Q, kLdh), mt_q, kKs, ring, warp, lane);
+  bar_consumers(kConsThreads);   // every warp has read o
+  store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, 1.f, warp, lane);
+  bar_consumers(kConsThreads);
+  layer_norm(a, Q, kLdh, MV, kLdh, n0, t_valid, warp, kCons, lane);
+}
+
+struct Plan {
+  int ks_f, ks_e, ks0p, lde, feat_floats, region, q_rows, rdw_floats, nst;
+  size_t smem;
+};
+
+// Shared memory: the ring, the x_in region (features [rows, F] at stride F
+// plus 8 floats of padding and <= 3 of alignment shift, then the embedding
+// [rows, lde]; later the A and B tiles), mv and q/o ([q_rows, kLdh] each, K > 1), the ray-diff MLP
+// weights and the barriers. A tile aims at two CTAs per SM, so that one
+// CTA's CUDA-core phases overlap the other's products.
+bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, Plan* p) {
+  p->ks_f = (F + kKStep - 1) / kKStep;
+  p->ks_e = (3 + 6 * NF + RD2 + kKStep - 1) / kKStep;
+  p->ks0p = (p->ks_f + p->ks_e + kStageK - 1) / kStageK * kStageK;
+  p->lde = kKStep * p->ks_e + 4;   // 4 mod 8: conflict-free A fragments
+  p->feat_floats = (rows * F + kKStep + 3 + 3) / 4 * 4;   // + the alignment shift
+  const int x_in = p->feat_floats + rows * p->lde;
+  p->region = x_in > 2 * rows * kLdh ? x_in : 2 * rows * kLdh;
+  p->q_rows = K > 1 ? (T + 15) / 16 * 16 : 0;
+  p->rdw_floats = (4 * RD1 + RD1 + RD1 * RD2 + RD2 + 3) / 4 * 4;
+  const size_t rest =
+      sizeof(float) * (static_cast<size_t>(p->region) + 2 * static_cast<size_t>(p->q_rows) * kLdh +
+                       p->rdw_floats) +
+      (2 * kMaxStages + 2) * sizeof(uint64_t);
+  size_t cap = kSmemMax;
+  if (rest + 2 * kStageBytes <= static_cast<size_t>(kSmemHalf)) cap = kSmemHalf;
+  if (rest + 2 * kStageBytes > cap) return false;
+  const size_t fit = (cap - rest) / kStageBytes;
+  p->nst = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  p->smem = rest + static_cast<size_t>(p->nst) * kStageBytes;
+  return true;
+}
+
+template <int MT>
+int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_agg_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.N + a.T - 1) / a.T;
+  fused_agg_kernel<MT><<<grid, (kCons + 1) * 32, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs for a tile of T samples.
-size_t fused_agg_smem_bytes(int T, int K, int lda) {
-  const int rows = T * K;
-  const int size_a = rows * (lda > 2 * kLdh ? lda : 2 * kLdh);
-  return sizeof(float) *
-         static_cast<size_t>(kChunk * kHd + size_a + rows * kLdh + 2 * T * kLdh);
+// Shared-memory bytes and ring stages of one CTA of `rows` rows holding T
+// samples; 0 if the tile does not fit.
+size_t fused_agg_smem_bytes(int rows, int T, int K, int F, int NF, int RD1, int RD2,
+                            int* stages) {
+  Plan p;
+  if (!make_plan(rows, T, K, F, NF, RD1, RD2, &p)) return 0;
+  if (stages != nullptr) *stages = p.nst;
+  return p.smem;
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = success).
-int fused_agg_forward(const float* xyz, const float* dir, int dir_stride,
-                      const float* mv, const float* nb_xyz, const float* nb_dir,
-                      const float* nb_feat, const float* scale, const float* freqs,
-                      const float* rd_w1, const float* rd_b1, const float* rd_w2,
-                      const float* rd_b2, const float* w0, const float* b0,
-                      const float* w1, const float* b1, const float* w2,
-                      const float* b2, const float* wq, const float* wk,
-                      const float* wv, const float* wfc, const float* ln_s,
-                      const float* ln_b, float* out, int N, int K, int F, int W,
-                      int NF, int RD1, int RD2, int T, float q_scale,
+// wpack holds the seven products in the ring's order and layout
+// (ops/fused_agg.py:pack_agg_weights); rows in {16, 32, 64}, T*K <= rows.
+int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const float* mv,
+                      const float* nb_xyz, const float* nb_dir, const float* nb_feat,
+                      const float* scale, const float* freqs, const float* rd_w1,
+                      const float* rd_b1, const float* rd_w2, const float* rd_b2,
+                      const float* wpack, const float* b0, const float* b1, const float* b2,
+                      const float* ln_s, const float* ln_b, float* out, int N, int K, int F,
+                      int W, int NF, int RD1, int RD2, int rows, int T, float q_scale,
                       void* stream) {
   if (N <= 0) return 0;
-  if (T < 1 || T * K > kRowsMax || W > kHd || W < 1 || RD1 > kMaxRd1)
+  Plan p;
+  if (T < 1 || K < 1 || T * K > rows || W < 1 || W > kHd || RD1 < 1 || RD1 > kMaxRd ||
+      RD1 > 6 * NF || RD2 < 1 || RD2 > kMaxRd || !make_plan(rows, T, K, F, NF, RD1, RD2, &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int fin = F + 3 + 6 * NF + RD2;
-  Args a{xyz, dir, mv, nb_xyz, nb_dir, nb_feat, scale, freqs,
-         rd_w1, rd_b1, rd_w2, rd_b2, w0, b0, w1, b1, w2, b2,
-         wq, wk, wv, wfc, ln_s, ln_b, out,
-         N, K, F, W, NF, RD1, RD2, T, dir_stride, fin | 1, q_scale};
-  const size_t smem = fused_agg_smem_bytes(T, K, a.lda);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (N + T - 1) / T;
-  fused_agg_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{xyz,    dir,    mv,     nb_xyz,        nb_dir,   nb_feat,  scale,
+               freqs,  rd_w1,  rd_b1,  rd_w2,         rd_b2,    wpack,    b0,
+               b1,     b2,     ln_s,   ln_b,          out,      N,        K,
+               F,      W,      NF,     RD1,           RD2,      T,        dir_stride,
+               p.ks_f, p.ks_e, p.ks0p, p.lde,         p.feat_floats,      p.region,
+               p.q_rows,       p.nst,  p.rdw_floats,  q_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 16: return launch_kernel<1>(a, p.smem, s);
+    case 32: return launch_kernel<2>(a, p.smem, s);
+    case 64: return launch_kernel<4>(a, p.smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

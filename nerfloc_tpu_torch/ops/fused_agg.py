@@ -7,13 +7,18 @@ fuses the tail of ConditionalNeRF.query: offsets -> frequency embedding ->
 ray-diff MLP -> base_mlp -> 4-head Lq=1 attention -> residual LayerNorm.
 
 On Hopper the kernel is csrc/fused_agg.cu (hand-written CUDA C++, built by
-ops/native.py). At the localization shapes it is bound by arithmetic
-(~200 FLOP per byte of input, see the source's header note); its design
-keeps a tile's [T*K, <=285] activations in shared memory so device memory
-sees each input once and each output once.
+ops/native.py): its seven matrix products run on the tensor cores as
+3xTF32 (f32 accuracy; wgmma for 64-row tiles, mma.sync for smaller ones),
+fed by a ring of weight stages that a producer warp fills with
+cp.async.bulk ahead of need; a tile's activations
+stay in shared memory, so device memory sees each input once and each
+output once (see the source's header note).
 
 - `reference_agg`: the plain PyTorch version (same math as the JAX
   reference_agg). CPU tensors take it; the backward replays it.
+- `pack_agg_weights`: the seven products in the ring's order and MMA
+  layout (one of two), built on the device with one gather per call.
+- `tile_plan`: rows per CTA and samples per CTA for a launch.
 - `fused_neighbor_agg`: the wrapper. CPU inputs -> `reference_agg`; CUDA
   inputs -> the kernel (or an error; there is no fallback).
 - `LAUNCHES`: count of kernel launches (plain integer attribute `n`).
@@ -23,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -32,12 +37,16 @@ from . import native
 Tensor = torch.Tensor
 
 N_HEAD, D_K = 4, 32
+HD = N_HEAD * D_K             # 128: attention width, and the padded W
 LN_EPS = 1e-6
 LEAK = 0.01
-ROWS_MAX = 64                 # T*K rows per CTA (csrc/fused_agg.cu kRowsMax)
+TILE_ROWS = (16, 32, 64)       # rows (T*K, padded) of one CTA: 16 x MT
+WGMMA_ROWS = 64                # tiles whose products run as wgmma
 PARAM_KEYS = ("rd_w1", "rd_b1", "rd_w2", "rd_b2", "b_w0p", "b_b0", "b_w1",
               "b_b1", "b_w2", "b_b2", "a_wq", "a_wk", "a_wv", "a_wfc",
               "ln_s", "ln_b")
+# products in the order the kernel's weight ring streams them
+RING_KEYS = ("b_w0p", "b_w1", "b_w2", "a_wv", "a_wk", "a_wq", "a_wfc")
 
 
 class LaunchCount:
@@ -69,12 +78,19 @@ def emb_perm(F: int, feat_dim: int, rdfc_dim: int) -> Tuple[int, ...]:
     return tuple(rows)
 
 
+@functools.lru_cache(maxsize=None)
+def _emb_perm_index(F: int, feat_dim: int, rdfc_dim: int,
+                    device: torch.device) -> Tensor:
+    """`emb_perm` as an index tensor on `device`, copied there once."""
+    return torch.tensor(emb_perm(F, feat_dim, rdfc_dim), device=device)
+
+
 def extract_agg_params(nerf, feat_dim: int) -> Dict[str, Tensor]:
     """Fused-segment weights of a port ConditionalNeRF in [in, out] layout,
     base_mlp fc0 rows permuted by `emb_perm`."""
     rd, bm, at = nerf.ray_diff_fc, nerf.base_mlp, nerf.base_mlp_attn
-    perm = torch.tensor(emb_perm(len(nerf.xyz_embed.freqs), feat_dim,
-                                 rd.fc1.out_features), device=bm.fc0.weight.device)
+    perm = _emb_perm_index(len(nerf.xyz_embed.freqs), feat_dim,
+                           rd.fc1.out_features, bm.fc0.weight.device)
     t = lambda lin: lin.weight.t().contiguous()  # noqa: E731
     return {
         "rd_w1": t(rd.fc0), "rd_b1": rd.fc0.bias,
@@ -91,8 +107,12 @@ def extract_agg_params(nerf, feat_dim: int) -> Dict[str, Tensor]:
 def reference_agg(xyz: Tensor, direction: Tensor, mv_agg: Tensor,
                   nb_xyz: Tensor, nb_dir: Tensor, nb_feat: Tensor,
                   scale: Tensor, params: Dict[str, Tensor],
-                  freqs: Tensor) -> Tensor:
-    """Plain PyTorch version of the fused segment -> feature_agg [N, W]."""
+                  freqs: Tensor,
+                  matmul: Callable[[Tensor, Tensor], Tensor] = torch.matmul
+                  ) -> Tensor:
+    """Plain PyTorch version of the fused segment -> feature_agg [N, W].
+    `matmul` computes the seven weight products (tests swap in an
+    emulation of the kernel's arithmetic)."""
     off = (xyz[:, None, :] - nb_xyz) / scale
     ph = off[..., None, :] * freqs[:, None]                  # [N, K, F, 3]
     emb = torch.cat([off, torch.sin(ph).flatten(-2), torch.cos(ph).flatten(-2)],
@@ -108,20 +128,127 @@ def reference_agg(xyz: Tensor, direction: Tensor, mv_agg: Tensor,
     rdfc = _leaky(h @ params["rd_w2"] + params["rd_b2"])
 
     x_in = torch.cat([nb_feat, emb, rdfc], dim=-1)
-    h = _leaky(x_in @ params["b_w0p"] + params["b_b0"])
-    h = _leaky(h @ params["b_w1"] + params["b_b1"])
-    pf = _leaky(h @ params["b_w2"] + params["b_b2"])        # [N, K, W]
+    h = _leaky(matmul(x_in, params["b_w0p"]) + params["b_b0"])
+    h = _leaky(matmul(h, params["b_w1"]) + params["b_b1"])
+    pf = _leaky(matmul(h, params["b_w2"]) + params["b_b2"])   # [N, K, W]
 
     N, K = pf.shape[:2]
-    q = (mv_agg @ params["a_wq"]) * (1.0 / D_K ** 0.5)
-    kk = (pf @ params["a_wk"]).reshape(N, K, N_HEAD, D_K)
-    vv = (pf @ params["a_wv"]).reshape(N, K, N_HEAD, D_K)
+    q = matmul(mv_agg, params["a_wq"]) * (1.0 / D_K ** 0.5)
+    kk = matmul(pf, params["a_wk"]).reshape(N, K, N_HEAD, D_K)
+    vv = matmul(pf, params["a_wv"]).reshape(N, K, N_HEAD, D_K)
     s = torch.einsum("nhd,nkhd->nhk", q.reshape(N, N_HEAD, D_K), kk)
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("nhk,nkhd->nhd", a, vv).reshape(N, N_HEAD * D_K)
-    y = o @ params["a_wfc"] + mv_agg
+    y = matmul(o, params["a_wfc"]) + mv_agg
     return torch.nn.functional.layer_norm(
         y, y.shape[-1:], params["ln_s"], params["ln_b"], eps=LN_EPS)
+
+
+# ---------------------------------------------------------------------------
+# Weight ring layout (mirrors make_plan and gemm in csrc/fused_agg.cu)
+# ---------------------------------------------------------------------------
+
+def ring_widths(F: int, NF: int, RD2: int) -> Tuple[int, int]:
+    """(Fp, fin_p): fc0's padded depth. The kernel reads k < Fp from the
+    features (rows beyond F are zero weights) and Fp <= k < fin_p from the
+    embedding [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0]; both are
+    multiples of 8 (the MMA depth), fin_p of 16 (the ring's stage)."""
+    Fp = -(-F // 8) * 8
+    return Fp, -(-(Fp + 3 + 6 * NF + RD2) // 16) * 16
+
+
+def _fragment_order(m: Tensor, wgmma: bool) -> Tensor:
+    """[Kp, 128] (k, n) -> the ring's flat order, per k-step of 8.
+
+    mma.sync (16/32-row tiles): warp w's lane (g, t) = (lane // 4, lane % 4)
+    reads its B fragments of n-tiles j = 2 jh + jl (b0: k = t, b1: k = t + 4;
+    n = 32 w + 8 j + g) as the float4s at (w, jh) = 128 (2 w + jh) + 4 lane:
+    [ks, w, jh, g, t, jl, e]. wgmma (64-row tiles): core matrices of 8
+    n-rows x 4 k, k-half major: [ks, kh, ng, r, c] with k = 4 kh + c,
+    n = 8 ng + r."""
+    Kp = m.shape[0]
+    if wgmma:
+        return m.reshape(Kp // 8, 2, 4, 16, 8).permute(0, 1, 3, 4, 2).reshape(-1)
+    return m.reshape(Kp // 8, 2, 4, 4, 2, 2, 8).permute(0, 3, 4, 6, 2, 5, 1).reshape(-1)
+
+
+def tf32_rna(x: Tensor) -> Tensor:
+    """x rounded to TF32 (cvt.rna: nearest, ties away from zero) on the
+    int32 view, as f32."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _row_maps(F: int, NF: int, RD2: int, W: int) -> Tuple[Tensor, ...]:
+    """Source row of each padded k (or -1) for the seven ring products."""
+    Fp, fin_p = ring_widths(F, NF, RD2)
+    c = torch.arange(fin_p)
+    fc0 = torch.where(c < F, c, torch.where(
+        (c >= Fp) & (c < Fp + 3 + 6 * NF + RD2), c - Fp + F, -1))
+    k = torch.arange(HD)
+    w_in = torch.where(k < W, k, -1)
+    return (fc0, w_in, w_in, w_in, w_in, w_in, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(F: int, NF: int, RD2: int, W: int, wgmma: bool,
+                device: torch.device) -> Tensor:
+    """Gather index from cat(flattened RING_KEYS tensors, [0.]) to the
+    packed ring buffer; padding points at the trailing zero. Built on the
+    host once per shape and device."""
+    shapes = _ring_src_shapes(F, NF, RD2, W)
+    numel = [r * c for r, c in shapes]
+    zero = sum(numel)
+    parts, base = [], 0
+    n = torch.arange(HD)
+    for (rows, cols), rmap, size in zip(shapes, _row_maps(F, NF, RD2, W), numel):
+        idx = base + rmap[:, None] * cols + n[None, :]
+        valid = (rmap[:, None] >= 0) & (n[None, :] < cols)
+        parts.append(_fragment_order(torch.where(valid, idx, zero), wgmma))
+        base += size
+    return torch.cat(parts).to(device)
+
+
+def _ring_src_shapes(F: int, NF: int, RD2: int, W: int) -> Tuple[Tuple[int, int], ...]:
+    fin = F + 3 + 6 * NF + RD2
+    return ((fin, W), (W, W), (W, W), (W, HD), (W, HD), (W, HD), (HD, W))
+
+
+def pack_agg_weights(params: Dict[str, Tensor], F: int, NF: int,
+                     wgmma: bool = False) -> Tensor:
+    """The seven products of `params` ([in, out] layout, fc0 permuted) as
+    the kernel's ring reads them: each zero-padded to [Kp, 128] (fc0 rows
+    to fin_p, W to 128) and put in the fragment order of `_fragment_order`.
+    For wgmma (64-row tiles) each k-step's [8, 128] tile is stored twice,
+    big = tf32_rna(w) then small = tf32_rna(w - big). One cat and one
+    gather on the params' device; the index is cached, not the weights
+    (they may change between calls)."""
+    W = params["b_b0"].shape[0]
+    RD2 = params["rd_w2"].shape[1]
+    flat = [params[k].reshape(-1) for k in RING_KEYS]
+    src = torch.cat(flat + [flat[0].new_zeros(1)])
+    packed = src[_pack_index(F, NF, RD2, W, wgmma, src.device)]
+    if not wgmma:
+        return packed
+    tiles = packed.view(-1, 8 * HD)
+    big = tf32_rna(tiles)
+    return torch.stack([big, tf32_rna(tiles - big)], dim=1).reshape(-1)
+
+
+def tile_plan(N: int, K: int, n_sm: int) -> Tuple[int, int]:
+    """(rows, T): rows of one CTA and the T = rows // K samples it holds;
+    CTA b takes samples [b T, min(N, (b + 1) T)).
+
+    The largest tile that still gives every SM a CTA (fewer, fuller CTAs
+    read the weights fewer times); launches too small for that take the
+    smallest tile, to spread over more SMs (PERF.md has the times of every
+    tile at the query and render shapes)."""
+    if not 1 <= K <= TILE_ROWS[-1]:
+        raise ValueError(f"fused_agg: unsupported K={K}")
+    options = [r for r in TILE_ROWS if r >= K]
+    for rows in reversed(options):
+        if -(-N // (rows // K)) >= n_sm:
+            return rows, rows // K
+    return options[0], options[0] // K
 
 
 # ---------------------------------------------------------------------------
@@ -133,24 +260,26 @@ def _kernel_fn():
     """The bound C entry point (builds the library on first use)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = native.load("fused_agg").fused_agg_forward
-    fn.argtypes = [p, p, i] + [p] * 23 + [i] * 8 + [f, p]
+    fn.argtypes = [p, p, i] + [p] * 17 + [i] * 9 + [f, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_plan(rows: int, T: int, K: int, F: int, NF: int, RD1: int,
+              RD2: int) -> Tuple[int, int]:
+    """(shared-memory bytes, ring stages) of one CTA, from the kernel's own
+    plan (0 bytes: the tile does not fit)."""
+    fn = native.load("fused_agg").fused_agg_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_size_t
+    stages = ctypes.c_int(0)
+    nbytes = fn(rows, T, K, F, NF, RD1, RD2, ctypes.addressof(stages))
+    return int(nbytes), stages.value
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def tile_samples(N: int, K: int, device: torch.device) -> int:
-    """Samples per CTA: ROWS_MAX // K, shrunk so that small launches still
-    spread over every SM."""
-    T = max(1, ROWS_MAX // K)
-    n_sm = _sm_count(device)
-    if -(-N // T) < n_sm:
-        T = max(1, -(-N // n_sm))
-    return T
 
 
 def _check(name: str, t: Tensor, shape: Sequence[int], device) -> None:
@@ -167,8 +296,9 @@ def _check(name: str, t: Tensor, shape: Sequence[int], device) -> None:
 
 def launch(xyz: Tensor, direction: Tensor, mv_agg: Tensor, nb_xyz: Tensor,
            nb_dir: Tensor, nb_feat: Tensor, scale: Tensor,
-           params: Dict[str, Tensor], freqs: Tensor) -> Tensor:
-    """Run the CUDA kernel on PyTorch's current stream -> [N, W]."""
+           params: Dict[str, Tensor], freqs: Tensor, rows: int = 0) -> Tensor:
+    """Run the CUDA kernel on PyTorch's current stream -> [N, W]. `rows`
+    overrides tile_plan's tile (one of TILE_ROWS)."""
     dev = mv_agg.device
     if dev.type != "cuda":
         raise ValueError("fused_agg.launch needs CUDA tensors")
@@ -176,8 +306,8 @@ def launch(xyz: Tensor, direction: Tensor, mv_agg: Tensor, nb_xyz: Tensor,
     W = mv_agg.shape[1]
     NF = freqs.shape[0]
     RD1, RD2 = params["rd_w1"].shape[1], params["rd_w2"].shape[1]
-    if K > ROWS_MAX or W > N_HEAD * D_K or RD1 > 32:
-        raise ValueError(f"fused_agg: unsupported K={K}, W={W} or RD1={RD1}")
+    if W > HD or RD1 > 32 or RD2 > 32:
+        raise ValueError(f"fused_agg: unsupported W={W}, RD1={RD1} or RD2={RD2}")
     if direction.dim() != 2 or direction.shape[0] != N or direction.shape[1] < 3:
         raise ValueError(f"fused_agg: direction has shape {tuple(direction.shape)}")
     _check("xyz", xyz, (N, 3), dev)
@@ -185,28 +315,35 @@ def launch(xyz: Tensor, direction: Tensor, mv_agg: Tensor, nb_xyz: Tensor,
     _check("mv_agg", mv_agg, (N, W), dev)
     _check("nb_xyz", nb_xyz, (N, K, 3), dev)
     _check("nb_dir", nb_dir, (N, K, 4), dev)
+    _check("nb_feat", nb_feat, (N, K, F), dev)
     _check("scale", scale, (), dev)
     _check("freqs", freqs, (NF,), dev)
-    fin = F + 3 + 6 * NF + RD2
     shapes = {"rd_w1": (4, RD1), "rd_b1": (RD1,), "rd_w2": (RD1, RD2),
-              "rd_b2": (RD2,), "b_w0p": (fin, W), "b_b0": (W,), "b_w1": (W, W),
-              "b_b1": (W,), "b_w2": (W, W), "b_b2": (W,),
-              "a_wq": (W, N_HEAD * D_K), "a_wk": (W, N_HEAD * D_K),
-              "a_wv": (W, N_HEAD * D_K), "a_wfc": (N_HEAD * D_K, W),
-              "ln_s": (W,), "ln_b": (W,)}
+              "rd_b2": (RD2,), "b_b0": (W,), "b_b1": (W,), "b_b2": (W,),
+              "ln_s": (W,), "ln_b": (W,),
+              **dict(zip(RING_KEYS, _ring_src_shapes(F, NF, RD2, W)))}
     for k in PARAM_KEYS:
         _check(k, params[k], shapes[k], dev)
+    if rows:
+        if rows not in TILE_ROWS or rows < K:
+            raise ValueError(f"fused_agg: rows={rows} with K={K}")
+        T = rows // K
+    else:
+        rows, T = tile_plan(N, K, _sm_count(dev))
     out = torch.empty((N, W), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    T = tile_samples(N, K, dev)
+    wpack = pack_agg_weights(params, F, NF, wgmma=rows == WGMMA_ROWS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn()(
         xyz.data_ptr(), direction.data_ptr(), direction.shape[1],
         mv_agg.data_ptr(), nb_xyz.data_ptr(), nb_dir.data_ptr(),
         nb_feat.data_ptr(), scale.data_ptr(), freqs.data_ptr(),
-        *[params[k].data_ptr() for k in PARAM_KEYS], out.data_ptr(),
-        N, K, F, W, NF, RD1, RD2, T, 1.0 / math.sqrt(D_K), stream)
+        *[params[k].data_ptr() for k in ("rd_w1", "rd_b1", "rd_w2", "rd_b2")],
+        wpack.data_ptr(),
+        *[params[k].data_ptr() for k in ("b_b0", "b_b1", "b_b2", "ln_s", "ln_b")],
+        out.data_ptr(), N, K, F, W, NF, RD1, RD2, rows, T,
+        1.0 / math.sqrt(D_K), stream)
     if err != 0:
         raise RuntimeError(f"fused_agg kernel launch failed: CUDA error {err}")
     LAUNCHES.n += 1

@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
-use with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into
+use with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xptxas -v` into
 `nerfloc_tpu_torch/_build/` (listed in .gitignore), under a file name keyed
-on a hash of the source, then loaded with ctypes. Nothing is compiled
-when a module is imported. No fast-math flags: the fused aggregation
+on a hash of the source, then loaded with ctypes. ptxas's report
+(registers, spills, shared memory of each kernel) is kept beside the
+library and read by `build_report`. Nothing is compiled when a module is
+imported. No fast-math flags: the fused aggregation
 evaluates sin/cos of arguments up to 2^9 * offset, which needs the
 accurate libdevice paths.
 """
@@ -24,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,8 +63,14 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_report(name: str) -> str:
+    """ptxas's report for the built csrc/<name>.cu (building it if needed)."""
+    return build(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build_all(names: Iterable[str]) -> List[Path]:

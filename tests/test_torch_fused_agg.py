@@ -183,16 +183,203 @@ def test_port_query_matches_jax(setup, level, K):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **TOL)
 
 
+def _main_width_params(rng, F=195, W=128, NF=10, RD1=16, RD2=27):
+    """Seeded weights at the main path's widths, [in, out] layout."""
+    fin = F + 3 + 6 * NF + RD2
+    shapes = {"rd_w1": (4, RD1), "rd_b1": (RD1,), "rd_w2": (RD1, RD2),
+              "rd_b2": (RD2,), "b_w0p": (fin, W), "b_b0": (W,), "b_w1": (W, W),
+              "b_b1": (W,), "b_w2": (W, W), "b_b2": (W,), "a_wq": (W, 128),
+              "a_wk": (W, 128), "a_wv": (W, 128), "a_wfc": (128, W),
+              "ln_s": (W,), "ln_b": (W,)}
+    p = {k: (rng.standard_normal(s) / np.sqrt(s[0] if len(s) == 2 else 10)
+             ).astype(np.float32) for k, s in shapes.items()}
+    p["ln_s"] += 1.0
+    return {k: torch.from_numpy(v) for k, v in p.items()}
+
+
+def _unpack_ring(packed, F, NF, RD2, wgmma):
+    """Read the packed buffer back the way the kernel does -> for each
+    product a [Kp, 128] matrix (mma.sync layout) or its (big, small) pair
+    (wgmma layout).
+
+    mma.sync: for k-step ks, warp w, lane (g, t) and n-tile j, b0 = (k = 8 ks
+    + t, n = 32 w + 8 j + g) and b1 = (k + 4, n) sit at float4 (w, j // 2)
+    of the k-step, lane slot 4 lane + 2 (j % 2) + {0, 1}. wgmma: each k-step
+    holds a big then a small [8, 128] tile of core matrices (k-half kh,
+    n-group ng) of 8 n-rows x 4 k: (k = 4 kh + c, n = 8 ng + r) at
+    512 kh + 32 ng + 4 r + c."""
+    Fp, fin_p = tfa.ring_widths(F, NF, RD2)
+    out, base = [], 0
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    kh, ng, r, c = np.meshgrid(np.arange(2), np.arange(16), np.arange(8), np.arange(4),
+                               indexing="ij")
+    for kp in (fin_p,) + (128,) * 6:
+        size = kp * 128 * (2 if wgmma else 1)
+        blk = packed[base:base + size]
+        base += size
+        if wgmma:
+            pair = []
+            for half in range(2):
+                m = np.full((kp, 128), np.nan, np.float32)
+                for ks in range(kp // 8):
+                    tile = blk[ks * 2048 + half * 1024:ks * 2048 + (half + 1) * 1024]
+                    m[8 * ks + 4 * kh + c, 8 * ng + r] = tile[512 * kh + 32 * ng + 4 * r + c]
+                pair.append(m)
+            out.append(tuple(pair))
+            continue
+        m = np.full((kp, 128), np.nan, np.float32)
+        for ks in range(kp // 8):
+            for w in range(4):
+                for j in range(4):
+                    at = ks * 1024 + w * 256 + (j // 2) * 128 + lane * 4 + 2 * (j % 2)
+                    n = 32 * w + 8 * j + g
+                    m[8 * ks + t, n] = blk[at]
+                    m[8 * ks + t + 4, n] = blk[at + 1]
+        out.append(m)
+    assert base == packed.shape[0]
+    return out
+
+
+def _padded(params, F, NF, RD2):
+    """The seven products zero-padded to the ring's [Kp, 128] (numpy)."""
+    W = params["b_b0"].shape[0]
+    Fp, fin_p = tfa.ring_widths(F, NF, RD2)
+    fin = F + 3 + 6 * NF + RD2
+    fc0 = np.zeros((fin_p, 128), np.float32)
+    fc0[:F, :W] = params["b_w0p"].numpy()[:F]
+    fc0[Fp:Fp + fin - F, :W] = params["b_w0p"].numpy()[F:]
+    mats = [fc0]
+    for key in tfa.RING_KEYS[1:]:
+        want = params[key].numpy()
+        m = np.zeros((128, 128), np.float32)
+        m[:want.shape[0], :want.shape[1]] = want
+        mats.append(m)
+    return mats
+
+
+def _check_ring_round_trip(params, F, NF, wgmma):
+    """Every slot is written once; the products (fc0 with its feature rows,
+    a zero row up to Fp, then [off | sin | cos | rdfc]) come back, padding
+    rows and columns are zero, and wgmma's halves are the 3xTF32 split."""
+    RD2 = params["rd_w2"].shape[1]
+    packed = tfa.pack_agg_weights(params, F, NF, wgmma=wgmma).numpy()
+    for got, want in zip(_unpack_ring(packed, F, NF, RD2, wgmma), _padded(params, F, NF, RD2)):
+        if wgmma:
+            big, small = got
+            want_big = _tf32(torch.from_numpy(want)).numpy()
+            np.testing.assert_array_equal(big, want_big)
+            np.testing.assert_array_equal(
+                small, _tf32(torch.from_numpy(want - want_big)).numpy())
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("wgmma", [False, True])
+def test_weight_pack_round_trips_main_widths(wgmma):
+    """(a) at W=128, F=195: the features pad to 200, fin 285 to 304."""
+    params = _main_width_params(np.random.default_rng(0))
+    assert tfa.ring_widths(195, 10, 27) == (200, 304)
+    _check_ring_round_trip(params, 195, 10, wgmma)
+
+
+@pytest.mark.parametrize("wgmma", [False, True])
+def test_weight_pack_round_trips_module_params(setup, wgmma):
+    """(a) from extract_agg_params of the port module (W=32 pads to 128)."""
+    cfg, *_, nerf, tctx, _ = setup
+    F = 3 + cfg.backbone2d_fpn_dim
+    with torch.no_grad():
+        params = tfa.extract_agg_params(nerf, F)
+    _check_ring_round_trip(params, F, cfg.multires, wgmma)
+
+
+def test_extract_agg_params_reuses_its_permutation_index(setup):
+    """The fc0 row permutation reaches the device once per shape, not per
+    query."""
+    cfg, *_, nerf, tctx, _ = setup
+    F = 3 + cfg.backbone2d_fpn_dim
+    tfa._emb_perm_index.cache_clear()
+    for _ in range(3):
+        tfa.extract_agg_params(nerf, F)
+    info = tfa._emb_perm_index.cache_info()
+    assert (info.misses, info.hits) == (1, 2)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest (ties away) on the int32 view,
+    dropping the low 13 mantissa bits."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernel's product: big = rna(x), small = rna(x - big), f32 sum of
+    a_s b_b + a_b b_s + a_b b_b, small terms first."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (a_s @ bb + ab @ b_s) + ab @ bb
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_3xtf32_products_hold_the_kernel_tolerance(K):
+    """(b) The 3xTF32 split keeps reference_agg within the kernel's
+    1e-4 + 1e-4 |ref| at W=128, F=195, 10 bands; one TF32 pass is far
+    coarser (which is why the kernel splits)."""
+    rng = np.random.default_rng(K)
+    params = _main_width_params(rng)
+    x = {k: t(v) for k, v in _inputs(64, K, 195, 128, seed=10 + K).items()}
+    freqs = torch.tensor([2.0 ** i for i in range(10)])
+    ref = tfa.reference_agg(**x, params=params, freqs=freqs)
+    got = tfa.reference_agg(**x, params=params, freqs=freqs, matmul=_mm_3xtf32)
+    err3 = (got - ref).abs()
+    assert bool((err3 <= 1e-4 + 1e-4 * ref.abs()).all()), float(err3.max())
+    err1 = (tfa.reference_agg(**x, params=params, freqs=freqs,
+                              matmul=_mm_1xtf32) - ref).abs()
+    assert float(err1.max()) > 20 * float(err3.max())
+
+
+def test_tf32_rounding_emulation():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 1.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("N", [1, 1000, 1024, 262144])
+@pytest.mark.parametrize("K", [1, 8])
+def test_tile_plan_covers_every_row_once(N, K):
+    """(c) CTA b takes samples [b T, min(N, (b + 1) T)): every sample (so
+    every row n K + k) lands in exactly one CTA, within its rows."""
+    rows, T = tfa.tile_plan(N, K, n_sm=132)
+    assert rows in tfa.TILE_ROWS and 1 <= T and T * K <= rows
+    grid = -(-N // T)
+    count = np.zeros(N, np.int64)
+    starts = np.arange(grid) * T
+    np.add.at(count, np.concatenate([np.arange(s, min(N, s + T)) for s in starts]), 1)
+    assert (count == 1).all()
+    assert grid * T >= N > (grid - 1) * T
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,K", [(1024, 8), (1024, 1), (1000, 8)])
+@pytest.mark.parametrize("N,K", [(1024, 8), (1024, 1), (1000, 8), (262144, 8)])
 def test_cuda_kernel_matches_reference(setup, N, K):
-    """Runs on a GPU only: the hand-written kernel vs the plain version."""
+    """Runs on a GPU only: the hand-written kernel vs the plain version
+    (on the card, TF32 off), at every tile size the shape admits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     x, jx, jp, freqs, tx, tp, tfreqs = _both(setup, N, K, seed=5)
     dev = torch.device("cuda")
     cx = {k: v.to(dev) for k, v in tx.items()}
     cp = {k: v.to(dev) for k, v in tp.items()}
-    got = tfa.launch(**cx, params=cp, freqs=tfreqs.to(dev)).cpu()
-    want = tfa.reference_agg(**tx, params=tp, freqs=tfreqs)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    want = tfa.reference_agg(**cx, params=cp, freqs=tfreqs.to(dev))
+    plans = [0] if N > 100_000 else [0] + [r for r in tfa.TILE_ROWS if r >= K]
+    for rows in plans:
+        got = tfa.launch(**cx, params=cp, freqs=tfreqs.to(dev), rows=rows)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
