@@ -14,7 +14,18 @@ Phases (any failure exits non-zero):
      launch counters set to 0 just before one query and read just after;
      then the median ms/query over 10 queries;
   5. the PnP perfect-correspondence fixture (rot < 0.5 deg, trans < 1 cm);
-  6. kernel and plain-version times at the query shapes (every tile size)
+  6. the render path's CUDA run against its CPU run on a small context
+     (V=3 at 32x32, 64 rays, dense S=8 and guided 4+4), same weights;
+  7. the render path at full width (default Config with
+     render.fused_query_agg=True, V=5 at 240x320, seeded weights), dense-64
+     and guided 16+16, each its own model: the scene context once, then
+     4096 rays at seeded pixels per render_rays call, with the launch
+     counters set to 0 just before one call and read just after (exactly
+     one fused_agg launch); the median ms/call over 10 calls, and the
+     kernel's own device time inside one dense call;
+  8. render_image of a 240x320 frame in chunks of 2048 rays: 38 launches
+     in the first frame, then the median ms/frame over 3 more;
+  9. kernel and plain-version times at the query shapes (every tile size)
      and at the render shape (N=262144, K=8), each kernel's bound at the
      FP32 peak and at the TF32 tensor-core peak.
 The last lines are a `kernels` JSON object, the card's name and power
@@ -29,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3.
@@ -36,7 +48,13 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 RENDER_N, RENDER_K = 262144, 8   # 4096 rays x 64 samples, 8 neighbours
+RENDER_RAYS, RENDER_CHUNK = 4096, 2048
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
+# CUDA path vs CPU path end to end: gathered neighbour features are rounded
+# to bf16 as in the reference, so a last-bit f32 difference upstream (cuDNN
+# vs CPU convolution sum order) can move a value across a bf16 rounding
+# boundary, a 2^-9 relative step
+PATH_TOL = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -197,17 +215,210 @@ def small_query_vs_cpu(dev):
         outs.append({k: v.cpu() for k, v in
                      m.localize_forward(b, kp_gumbel=kp, pnp_gumbel=pnp).items()})
     cpu, gpu = outs
-    # Gathered neighbour features are rounded to bf16 as in the reference;
-    # a last-bit f32 difference upstream (cuDNN vs CPU convolution sum
-    # order) can move a value across a bf16 rounding boundary, a 2^-9
-    # relative step, so these bounds are wider than the kernel's own.
-    for k, tol in (("desc_3d", 2e-3), ("score_matrix", 2e-3), ("mkps2d", 1e-2)):
+    # PATH_TOL, wider than the kernel's own bound (see there)
+    for k, tol in (("desc_3d", PATH_TOL), ("score_matrix", PATH_TOL), ("mkps2d", 1e-2)):
         err = float((cpu[k] - gpu[k]).abs().max())
         print(f"small query {k}: cuda vs cpu max_abs_err={err:.3g} (tol {tol})")
         if not err <= tol:
             fail(f"small query {k} differs between CUDA and CPU by {err}")
     if not torch.equal(cpu["match_j"], gpu["match_j"]):
         fail("small query match_j differs between CUDA and CPU")
+
+
+def seeded_rays(batch, n: int, seed: int):
+    """n rays of the query view through seeded uniform pixels."""
+    import torch
+    from nerfloc_tpu_torch.geometry.cameras import rays_for_pixels
+    H, W = batch["image"].shape[:2]
+    g = torch.Generator().manual_seed(seed)
+    uv = torch.stack([torch.rand(n, generator=g) * (W - 1),
+                      torch.rand(n, generator=g) * (H - 1)], dim=-1)
+    return rays_for_pixels(uv.to(batch["K"].device), batch["K"], batch["pose"])
+
+
+def small_render_vs_cpu(dev):
+    """render_image_rays on CUDA (kernel) against the CPU (plain versions)
+    on a 32x32, V=3 context with the same weights: dense S=8 and guided
+    4+4 (N_guide 8), 64 rays."""
+    import torch
+    from nerfloc_tpu_torch.configs import Config, MatchingConfig, RenderConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    nb = device_batch(make_query_batch(n_views=3, H=32, W=32, seed=0))
+    for kind, render in (("dense", RenderConfig(fused_query_agg=True, N_samples=8)),
+                         ("guided", RenderConfig(fused_query_agg=True, N_samples=4,
+                                                 N_importance=4, N_guide=8))):
+        cfg = Config(backbone2d_fpn_dim=32, model_3d_hidden_dim=32, matcher_hidden_dim=48,
+                     n_views_test=3, render=render,
+                     matching=MatchingConfig(fine_num_3d_keypoints=32,
+                                             coarse_num_3d_keypoints=32))
+        outs = []
+        for d in (torch.device("cpu"), dev):
+            m = NerfPoseEstimator(cfg, device=d, seed=3)
+            b = to_device_batch(nb, d)
+            outs.append({k: v.cpu() for k, v in
+                         m.render_image_rays(b, *seeded_rays(b, 64, seed=5)).items()})
+        cpu, gpu = outs
+        for k in ("rgb", "depth", "weights", "feat"):
+            err = float((cpu[k] - gpu[k]).abs().max())
+            print(f"small render {kind} {k}: cuda vs cpu max_abs_err={err:.3g} "
+                  f"(tol {PATH_TOL})")
+            if not err <= PATH_TOL:
+                fail(f"small render {kind} {k} differs between CUDA and CPU by {err}")
+        if not torch.equal(cpu["mask"], gpu["mask"]):
+            fail(f"small render {kind} mask differs between CUDA and CPU")
+
+
+def check_render_out(out, n_rays: int, S: int, far: float, what: str):
+    import torch
+    shapes = {"rgb": (n_rays, 3), "depth": (n_rays,), "weights": (n_rays, S)}
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape or not bool(torch.isfinite(out[k]).all()):
+            fail(f"{what}: {k} malformed ({tuple(out[k].shape)}, expected {shape})")
+    rgb, depth = out["rgb"], out["depth"]
+    if float(rgb.min()) < -1e-4 or float(rgb.max()) > 1 + 1e-4:
+        fail(f"{what}: rgb outside [0, 1] ({float(rgb.min())}, {float(rgb.max())})")
+    if float(depth.min()) < 0 or float(depth.max()) > far:
+        fail(f"{what}: depth outside [0, far={far}]")
+
+
+class StageTimer:
+    """CUDA events around wrapped functions, by stage name: the device time
+    of each stage inside a real call."""
+
+    def __init__(self):
+        import torch
+        self.torch = torch
+        self.events = defaultdict(list)
+        self.undo = []
+
+    def wrap(self, owner, attr: str, name: str):
+        fn = getattr(owner, attr)
+
+        def run(*a, **kw):
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        had = attr in vars(owner)
+        self.undo.append((owner, attr, getattr(owner, attr) if had else None, had))
+        setattr(owner, attr, run)
+
+    def restore(self):
+        for owner, attr, old, had in reversed(self.undo):
+            if had:
+                setattr(owner, attr, old)
+            else:
+                delattr(owner, attr)
+
+    def take(self):
+        """{stage: (ms, calls)} of the events recorded since the last take()."""
+        self.torch.cuda.synchronize()
+        out = {k: (sum(s.elapsed_time(e) for s, e in v), len(v))
+               for k, v in self.events.items()}
+        self.events.clear()
+        return out
+
+
+def render_full_width(dev, card: str):
+    """Phases 7-8: render_rays at full width, dense-64 and guided 16+16,
+    then render_image of one frame. Returns the numbers for `kernels`."""
+    import torch
+    from nerfloc_tpu_torch.configs import Config, RenderConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    H, W = 240, 320
+    batch = to_device_batch(device_batch(make_query_batch(n_views=5, H=H, W=W, seed=0)),
+                            dev)
+    far = float(batch["far"])
+    rays = seeded_rays(batch, RENDER_RAYS, seed=0)
+    res = {}
+    for kind, render in (("dense", RenderConfig(fused_query_agg=True)),
+                         ("guided", RenderConfig(fused_query_agg=True, N_samples=16,
+                                                 N_importance=16))):
+        model = NerfPoseEstimator(Config(render=render), device=dev, seed=0)
+        nerf = model.model_3d
+        S = render.N_samples + render.N_importance
+        with torch.no_grad():
+            ctx, _ = model.build_context(batch)
+
+            def call():
+                return nerf.render_rays(ctx, *rays, batch["pose"])
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            fa.LAUNCHES.n = 0
+            out = call()
+            torch.cuda.synchronize()
+            launches = fa.LAUNCHES.n
+            print(f"render {kind} ({render.N_samples}+{render.N_importance}): fused_agg "
+                  f"launches per render_rays call = {launches}")
+            if launches != 1:
+                fail(f"expected 1 fused_agg launch per render_rays call, got {launches}")
+            check_render_out(out, RENDER_RAYS, S, far, f"render_rays {kind}")
+            print(f"render {kind}: mask share {float(out['mask'].float().mean()):.3f}, "
+                  f"depth mean {float(out['depth'].mean()):.4f}")
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(times)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"render_rays {kind} V=5 {H}x{W}, {RENDER_RAYS} rays x {S} samples: "
+                  f"median {ms:.2f} ms/call over 10 (min {min(times):.2f}, max "
+                  f"{max(times):.2f}), {RENDER_RAYS / ms * 1e3:.0f} rays/s; peak memory "
+                  f"{peak:.2f} GiB; {card}")
+            res[f"render_{kind}_ms_per_call"] = ms
+            if kind == "dense":
+                T = StageTimer()
+                T.wrap(fa, "launch", "fused_agg")
+                try:
+                    call()
+                finally:
+                    T.restore()
+                k_ms, n = T.take()["fused_agg"]
+                print(f"render dense: fused_agg inside one call {k_ms:.4f} ms over {n} "
+                      f"launch ({100 * k_ms / ms:.1f} % of the call); {card}")
+                res["render_launches_per_call"] = launches
+                res["render_kernel_ms_in_call"] = k_ms
+
+                def frame():
+                    return nerf.render_image(ctx, batch["K"], batch["pose"], H, W)
+                torch.cuda.synchronize()
+                fa.LAUNCHES.n = 0
+                img = frame()
+                torch.cuda.synchronize()
+                n_img = fa.LAUNCHES.n
+                want = -(-H * W // RENDER_CHUNK)
+                if nerf.cfg.render.chunk != RENDER_CHUNK or n_img != want:
+                    fail(f"render_image: expected {want} launches, got {n_img}")
+                for k, v in img.items():
+                    if tuple(v.shape[:2]) != (H, W):
+                        fail(f"render_image {k} has shape {tuple(v.shape)}")
+                check_render_out({k: v.reshape((H * W,) + v.shape[2:]) for k, v in img.items()},
+                                 H * W, S, far, "render_image")
+                del img
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    frame()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                frame_ms = statistics.median(times)
+                print(f"render_image {H}x{W} in chunks of {nerf.cfg.render.chunk}: median "
+                      f"{frame_ms:.2f} ms/frame over 3 after one warm-up frame (min "
+                      f"{min(times):.2f}, max {max(times):.2f}), {H * W / frame_ms * 1e3:.0f} "
+                      f"rays/s, fused_agg launches {n_img}; {card}")
+                res["render_image_ms_per_frame"] = frame_ms
+        del model, nerf, ctx, out
+        torch.cuda.empty_cache()
+    return res
 
 
 def check_pose(pose, what: str):
@@ -399,8 +610,12 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
 
     pnp_fixture(dev)
+    small_render_vs_cpu(dev)
+    render = render_full_width(dev, card)
 
-    kernels = [time_fused_agg(model, cfg, dev, launches, max_err, card)]
+    kernels = [{**time_fused_agg(model, cfg, dev, launches, max_err, card),
+                "render_launches_per_call": render["render_launches_per_call"],
+                "render_kernel_ms_in_call": render["render_kernel_ms_in_call"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,17 @@ def get_rays(H: int, W: int, K: Tensor, c2w: Tensor) -> Tuple[Tensor, Tensor]:
     return c2w[:3, 3].expand_as(rays_d), rays_d
 
 
+def rays_for_pixels(uv: Tensor, K: Tensor, c2w: Tensor) -> Tuple[Tensor, Tensor]:
+    """Rays through arbitrary float pixel coordinates [N, 2] ->
+    (rays_o [N,3], unit rays_d [N,3]); only the requested rays are built."""
+    dirs = torch.stack([(uv[..., 0] - K[0, 2]) / K[0, 0],
+                        (uv[..., 1] - K[1, 2]) / K[1, 1],
+                        torch.ones_like(uv[..., 0])], dim=-1)
+    rays_d = dirs @ c2w[:3, :3].T
+    rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    return c2w[:3, 3].expand_as(rays_d), rays_d
+
+
 def backproject_depth(depth: Tensor, K: Tensor, c2w: Tensor) -> Tuple[Tensor, Tensor]:
     """[H, W] depth -> (world points [H,W,3], validity depth > 0)."""
     H, W = depth.shape

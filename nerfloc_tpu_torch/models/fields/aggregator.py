@@ -1,5 +1,6 @@
 """Multi-view feature aggregation with NeuRay visibility weighting
-(counterpart of nerfloc_tpu/models/fields/aggregator.py, unpruned paths)."""
+(counterpart of nerfloc_tpu/models/fields/aggregator.py, unpruned paths),
+and the NeuRay alpha weights of the guided render pass."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -10,9 +11,11 @@ from torch import nn
 
 from ...ops.interp import bilinear_sample_views, packed_bilinear_sample_views
 from . import neuray
-from .projector import compute_projections, feature_uv_scale, project_and_sample
+from .projector import (Projection, compute_projections, feature_uv_scale,
+                        project_and_sample)
 
 Tensor = torch.Tensor
+ALPHA_GROUND_STATE = -15.0   # alpha logit of empty space (guided sampling)
 
 
 class SupportViews(NamedTuple):
@@ -54,28 +57,67 @@ class MultiviewFeatureAggregator(nn.Module):
             prj_depth[..., None], mean, var, vis_d, aw, sv.near, sv.far)
         return visibility * valid.to(visibility.dtype), depth_diff
 
-    def predict_visibility(self, sv: SupportViews, xyz: Tensor):
-        """(vis [V, N], depth_diff [V, N]) of world points."""
+    def _sample_ray_feats(self, sv: SupportViews, xyz: Tensor,
+                          vis_packed: Optional[Tensor] = None):
+        """Project [N, 3] points into every view and sample the ray
+        features there -> (ray_feats [V, N, 32], depth [V, N], valid [V, N]).
+        vis_packed: pack_bilinear_corners table of sv.vis_featmaps."""
         V, H, W = sv.images.shape[:3]
         proj = compute_projections(xyz, sv.Ks, sv.poses, H, W)
         valid = _rf_valid(proj, H, W)
         h, w = sv.vis_featmaps.shape[1:3]
-        ray_feats = bilinear_sample_views(
-            sv.vis_featmaps, proj.uv * feature_uv_scale(h, w, H, W, xyz))
+        uv_f = proj.uv * feature_uv_scale(h, w, H, W, xyz)
+        if vis_packed is not None:
+            ray_feats = packed_bilinear_sample_views(vis_packed, h, w, uv_f)
+        else:
+            ray_feats = bilinear_sample_views(sv.vis_featmaps, uv_f)
         ray_feats = ray_feats * valid[..., None].to(ray_feats.dtype)
-        return self._decode_visibility(sv, ray_feats, proj.depth, valid)
+        return ray_feats, proj.depth, valid
+
+    def predict_visibility(self, sv: SupportViews, xyz: Tensor):
+        """(vis [V, N], depth_diff [V, N]) of world points."""
+        return self._decode_visibility(sv, *self._sample_ray_feats(sv, xyz))
+
+    def predict_alpha_weights(self, sv: SupportViews, que_pts: Tensor,
+                              que_dists: Tensor, vis_packed: Optional[Tensor] = None
+                              ) -> Tensor:
+        """Volume-rendering weights [rn, dn] along rays from the NeuRay
+        alphas of the support views: que_pts [rn, dn, 3], que_dists [rn, dn]
+        intervals in inverse-normalized depth. Views that do not see a
+        sample vote the ground-state logit; a sample no view sees gets it."""
+        rn, dn, _ = que_pts.shape
+        ray_feats, prj_depth, valid = self._sample_ray_feats(
+            sv, que_pts.reshape(rn * dn, 3), vis_packed)
+        mean, var, vis_d, aw = self.dist_decoder(ray_feats)
+        V = ray_feats.shape[0]
+        alpha_logit, visibility, _ = neuray.compute_alpha_prob(
+            prj_depth.reshape(V, rn, dn), que_dists[None].expand(V, rn, dn),
+            mean.reshape(V, rn, dn, 2), var.reshape(V, rn, dn, 2),
+            vis_d.reshape(V, rn, dn, 1), aw.reshape(V, rn, dn, 1), sv.near, sv.far)
+        m = valid.reshape(V, rn, dn).to(alpha_logit.dtype)
+        alphas = alpha_logit * m + (1.0 - m) * ALPHA_GROUND_STATE
+        vis = visibility * m
+        alphas = torch.sum(alphas * vis, dim=0) / torch.clamp(torch.sum(vis, dim=0), min=1e-8)
+        alphas = torch.where(torch.sum(m, dim=0) == 0,
+                             torch.full_like(alphas, ALPHA_GROUND_STATE), alphas)
+        a = torch.sigmoid(alphas)
+        shifted = torch.cat([torch.ones_like(a[:, :1]), 1.0 - a[:, :-1]], dim=-1)
+        return a * torch.cumprod(shifted, dim=-1)
 
     def forward(self, sv: SupportViews, featmaps: Tensor, xyz: Tensor,
                 fused_packed: Optional[Tensor] = None,
-                rgb_packed: Optional[Tensor] = None):
+                rgb_packed: Optional[Tensor] = None, proj: Optional[Projection] = None):
         """-> (out [N, out_channels], rgb_feat [N, V, 3+C], vis [N, V, 1]).
 
         fused_packed/rgb_packed: pack_bilinear_corners tables of
-        [featmaps | vis_featmaps] and sv.images (the scene context's)."""
+        [featmaps | vis_featmaps] and sv.images (the scene context's);
+        proj: the projection of xyz when the caller already has it (used
+        only where featmaps share the visibility maps' resolution)."""
         V, H, W = sv.images.shape[:3]
         C = featmaps.shape[-1]
         if featmaps.shape[1:3] == sv.vis_featmaps.shape[1:3]:
-            proj = compute_projections(xyz, sv.Ks, sv.poses, H, W)
+            if proj is None:
+                proj = compute_projections(xyz, sv.Ks, sv.poses, H, W)
             h, w = featmaps.shape[1:3]
             uv_f = proj.uv * feature_uv_scale(h, w, H, W, xyz)
             if fused_packed is not None and rgb_packed is not None:

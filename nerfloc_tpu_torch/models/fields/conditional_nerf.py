@@ -1,12 +1,19 @@
-"""Conditional NeRF, localization half (counterpart of
-nerfloc_tpu/models/fields/conditional_nerf.py: `MLP`, `_backproject_level`,
-`build_scene_context` with the default tables, `sample_keypoints`,
-`query` (fused and unfused), `query_coarse`, `query_fine`).
+"""Conditional NeRF (counterpart of
+nerfloc_tpu/models/fields/conditional_nerf.py): `MLP`, `_backproject_level`,
+`build_scene_context` with the default tables, `sample_keypoints`, `query`
+(fused and unfused, with the render branch), `query_coarse`, `query_fine`,
+`sample_depths`, `render_rays` (dense and NeuRay-guided sampling),
+`render_image` and `sample_pdf_det`.
 
 Gathered neighbour rows: the JAX package packs [xyz|dir|conf] as three
 bf16 hi/mid/lo parts (exact to f32) and the features as bf16, because TPU
 row gathers of f32 are slow. The port gathers the f32 geometry directly and
-keeps the bf16 rounding of the gathered features, so its outputs match.
+the features from a bf16 copy of their table, so its outputs match.
+
+Render options that are off by default (`knn_mode` 'ray'/'flat', the merged
+table, view pruning, int8 tables, one-hot geometry assembly) are not
+ported: `build_scene_context` and `render_rays` raise NotImplementedError
+for them.
 """
 from __future__ import annotations
 
@@ -22,11 +29,13 @@ from ...geometry.embedder import Embedder
 from ...geometry.math import safe_normalize, safe_sqrt
 from ...ops.fused_agg import extract_agg_params, fused_neighbor_agg
 from ...ops.interp import pack_bilinear_corners, resize_nearest
-from ...ops.knn import knn, knn_gather, topk_first
+from ...ops.knn import knn, knn_gather, knn_proj, pack_xyz_window, topk_first
 from ..transformer import MultiHeadAttention
 from .aggregator import MultiviewFeatureAggregator, SupportViews
 from .context import NeuralPoints, SceneContext
-from .neuray import DepthFusionNet
+from .neuray import DepthFusionNet, depth2inv_dists
+from .projector import Projection, compute_angle, compute_projections
+from .ray_unet import RayUnet
 
 Tensor = torch.Tensor
 
@@ -35,7 +44,28 @@ def _leaky(y: Tensor) -> Tensor:
     return F.leaky_relu(y, 0.01)
 
 
-_FINAL = {"leaky_relu": _leaky, "sigmoid": torch.sigmoid, None: lambda y: y}
+_FINAL = {"leaky_relu": _leaky, "sigmoid": torch.sigmoid, "softplus": F.softplus,
+          None: lambda y: y}
+
+
+def check_render_options(cfg: Config) -> None:
+    """Raise NotImplementedError for render options the port lacks."""
+    r = cfg.render
+    unported = [name for name, on in (
+        (f"knn_mode={r.knn_mode!r}", r.knn_mode != "proj"),
+        ("use_merged_table", r.use_merged_table),
+        (f"prune_views={r.prune_views}", r.prune_views > 0),
+        ("table_dtype='int8'", r.table_dtype == "int8"),
+        ("geo_assembly='onehot'", r.geo_assembly == "onehot")) if on]
+    if unported:
+        raise NotImplementedError(
+            f"render options not ported: {', '.join(unported)} (the port "
+            "covers knn_mode='proj' with the unmerged bf16/f32 tables)")
+
+
+def _linspace01(n: int, like: Tensor) -> Tensor:
+    """n points from 0 to 1 as jnp.linspace computes them (i / (n-1))."""
+    return torch.arange(n, dtype=like.dtype, device=like.device) / max(n - 1, 1)
 
 
 class MLP(nn.Module):
@@ -59,6 +89,8 @@ class MLP(nn.Module):
 
 
 class ConditionalNeRF(nn.Module):
+    RENDER_HEADS = ("ray_unet", "sigma_mlp", "feat_mlp", "rgb_blending_mlp", "beta_mlp")
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
@@ -80,6 +112,16 @@ class ConditionalNeRF(nn.Module):
         self.base_mlp_attn = MultiHeadAttention(4, W, 32, 32)
         self.proj_layer_3d_coarse = nn.Linear(W + self.feat_dim, cfg.matcher_hidden_dim)
         self.proj_layer_3d_fine = nn.Linear(W + self.feat_dim, cfg.matcher_hidden_dim)
+        # render heads (RENDER_HEADS)
+        self.ray_unet = RayUnet(W, cfg.render.N_samples + cfg.render.N_importance)
+        self.sigma_mlp = MLP(W, (1,), final_activation="softplus")
+        if cfg.render.render_feature:
+            self.feat_mlp = MLP(W, (W, C))
+        # input rows: [feature_agg | mv_feat (rgb + feature) | mv_vis | ray_diff]
+        self.rgb_blending_mlp = MLP(W + self.feat_dim + 1 + 4, (32, 16, 1))
+        if cfg.render.use_render_uncertainty:
+            self.beta_mlp = MLP(W, (1,), final_activation="softplus")
+        self.beta_min = 0.1
 
     # -- scene context ------------------------------------------------------
 
@@ -113,6 +155,7 @@ class ConditionalNeRF(nn.Module):
                             Ks: Tensor, near: Tensor, far: Tensor,
                             feat_coarse_src: Tensor, feat_fine_src: Tensor,
                             stride_coarse: int, stride_fine: int) -> SceneContext:
+        check_render_options(self.cfg)
         vis_featmaps = self.depth_fusion(images, depths, Ks, poses, near, far)
         sv = SupportViews(images=images, depths=depths, poses=poses, Ks=Ks,
                           vis_featmaps=vis_featmaps, near=near, far=far)
@@ -123,16 +166,33 @@ class ConditionalNeRF(nn.Module):
         conf_f = self.confidence_mlp(mv_feat)
         fine = fine.replace(confidence=conf_f * fine.mask[:, None].to(conf_f.dtype))
         coarse = coarse.replace(kp_score=self.keypoint_head(coarse.feature[:, 3:]))
+        return self.assemble_context(sv, coarse, fine, feat_coarse_src, feat_fine_src)
 
-        fused_fine_packed = None
-        if feat_fine_src.shape[1:3] == vis_featmaps.shape[1:3]:
+    def assemble_context(self, sv: SupportViews, coarse: NeuralPoints,
+                         fine: NeuralPoints, feat_coarse_src: Tensor,
+                         feat_fine_src: Tensor) -> SceneContext:
+        """The scene context with its sampling tables: the 4-corner tables
+        of [fine features | ray features] and of the images, the knn_proj
+        window table of the fine points, and (guided sampling only) the
+        4-corner table of the ray features."""
+        V = sv.images.shape[0]
+        hf, wf = feat_fine_src.shape[1:3]
+        fused_fine_packed = vis_corner_packed = None
+        if feat_fine_src.shape[1:3] == sv.vis_featmaps.shape[1:3]:
             fused_fine_packed = pack_bilinear_corners(
-                torch.cat([feat_fine_src, vis_featmaps], dim=-1))
+                torch.cat([feat_fine_src, sv.vis_featmaps], dim=-1))
+        if self.cfg.render.N_importance > 0:
+            vis_corner_packed = pack_bilinear_corners(sv.vis_featmaps)
+        xyz_window_packed = pack_xyz_window(fine.xyz.reshape(V, hf, wf, 3),
+                                            fine.mask.reshape(V, hf, wf),
+                                            win=self.cfg.render.knn_proj_window)
         return SceneContext(sv=sv, coarse=coarse, fine=fine,
                             feat_coarse_src=feat_coarse_src,
                             feat_fine_src=feat_fine_src,
                             fused_fine_packed=fused_fine_packed,
-                            rgb_packed=pack_bilinear_corners(images))
+                            rgb_packed=pack_bilinear_corners(sv.images),
+                            xyz_window_packed=xyz_window_packed,
+                            vis_corner_packed=vis_corner_packed)
 
     # -- keypoints ----------------------------------------------------------
 
@@ -150,25 +210,46 @@ class ConditionalNeRF(nn.Module):
 
     # -- querying -----------------------------------------------------------
 
-    def query(self, ctx: SceneContext, xyz: Tensor, level: str, K: int
-              ) -> Dict[str, Tensor]:
+    @staticmethod
+    def gather_neighbours(points: NeuralPoints, idx: Tensor):
+        """(xyz [N,K,3], direction [N,K,4], confidence [N,K,1], feature
+        [N,K,F]) of the neighbours idx [N, K]; features rounded to bf16 as
+        the JAX package's gather table stores them."""
+        feature = points.feature.to(torch.bfloat16)
+        return (knn_gather(points.xyz, idx), knn_gather(points.direction, idx),
+                knn_gather(points.confidence, idx),
+                knn_gather(feature, idx).to(points.feature.dtype))
+
+    def query(self, ctx: SceneContext, xyz: Tensor, level: str, K: int,
+              direction: Optional[Tensor] = None, knn_idx: Optional[Tensor] = None,
+              proj: Optional[Projection] = None) -> Dict[str, Tensor]:
         """Aggregate a descriptor for [N, 3] points from their K nearest
-        neural points and the multiview features."""
+        neural points and the multiview features.
+
+        Render branch: knn_idx [N, K] are the neighbours (from knn_proj);
+        their distances come from the gathered points, masked ones at
+        finfo.max/4. direction [N, >=3] is the query direction (ray
+        direction and depth); without it, the nearest neighbour's. proj is
+        the projection of xyz, shared with the caller."""
         points = ctx.coarse if level == "coarse" else ctx.fine
         featmaps = ctx.feat_coarse_src if level == "coarse" else ctx.feat_fine_src
         fine = level == "fine"
         mv_agg, mv_feat, mv_vis = self.multiview_aggregator(
             ctx.sv, featmaps, xyz,
             fused_packed=ctx.fused_fine_packed if fine else None,
-            rgb_packed=ctx.rgb_packed if fine else None)
+            rgb_packed=ctx.rgb_packed if fine else None, proj=proj)
 
-        dists, idx = knn(xyz, points.xyz, K=K, points_mask=points.mask)
-        dists = safe_sqrt(dists)
-        nb_xyz = knn_gather(points.xyz, idx)
-        nb_dir = knn_gather(points.direction, idx)
-        nb_conf = knn_gather(points.confidence, idx)
-        nb_feat = knn_gather(points.feature, idx).to(torch.bfloat16).to(points.feature.dtype)
-        direction = nb_dir[:, 0, :]
+        idx = knn_idx
+        if idx is None:
+            d2, idx = knn(xyz, points.xyz, K=K, points_mask=points.mask)
+        nb_xyz, nb_dir, nb_conf, nb_feat = self.gather_neighbours(points, idx)
+        if knn_idx is not None:
+            d = xyz[:, None, :] - nb_xyz
+            d2 = torch.where(knn_gather(points.mask, idx), torch.sum(d * d, dim=-1),
+                             torch.finfo(d.dtype).max / 4)
+        dists = safe_sqrt(d2)
+        if direction is None:
+            direction = nb_dir[:, 0, :]
         scale = ctx.sv.far - ctx.sv.near
 
         if self.cfg.render.fused_query_agg:
@@ -212,3 +293,159 @@ class ConditionalNeRF(nn.Module):
         feature_2d = knn_gather(ctx.fine.feature, idx)[:, 0]
         qd = self.query(ctx, points, level="fine", K=1)
         return self.proj_layer_3d_fine(torch.cat([qd["feature_agg"], feature_2d], dim=1))
+
+    # -- rendering ----------------------------------------------------------
+
+    def sample_depths(self, n: int, near: Tensor, far: Tensor) -> Tensor:
+        """n depths from near to far, evenly spaced (or in inverse depth
+        with render.lindisp)."""
+        t = _linspace01(n, near)
+        if not self.cfg.render.lindisp:
+            return near * (1.0 - t) + far * t
+        return 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
+
+    def ray_depths(self, ctx: SceneContext, rays_o: Tensor, rays_d: Tensor
+                   ) -> Tuple[Tensor, Optional[Tensor]]:
+        """(z_vals [R, S], depth_coarse [R] or None). Dense: N_samples even
+        depths. Guided (N_importance > 0): NeuRay alpha weights at N_guide
+        depths place N_importance more samples by inverse CDF, merged into
+        the dense ones by a sort."""
+        r = self.cfg.render
+        near, far = ctx.sv.near, ctx.sv.far
+        R = rays_o.shape[0]
+        z_vals = self.sample_depths(r.N_samples, near, far).expand(R, -1)
+        if r.N_importance == 0:
+            return z_vals, None
+        z_c = self.sample_depths(r.N_guide, near, far).expand(R, -1)
+        que_pts = rays_o[:, None, :] + rays_d[:, None, :] * z_c[..., None]
+        w_c = self.multiview_aggregator.predict_alpha_weights(
+            ctx.sv, que_pts, depth2inv_dists(z_c, near, far),
+            vis_packed=ctx.vis_corner_packed)
+        z_mid = 0.5 * (z_c[:, :-1] + z_c[:, 1:])
+        z_fine = sample_pdf_det(z_mid, w_c[:, 1:-1].detach(), r.N_importance)
+        z_vals = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1)[0]
+        return z_vals, torch.sum(w_c * z_c, dim=-1)
+
+    def render_knn(self, ctx: SceneContext, xyz: Tensor, proj: Projection) -> Tensor:
+        """8 neighbours [N, 8] of each sample among the fine points by
+        knn_proj: the window sits at the projection in featmap pixels
+        (image uv / stride)."""
+        H = ctx.sv.images.shape[1]
+        hf, wf = ctx.feat_fine_src.shape[1:3]
+        return knn_proj(xyz, proj.uv / float(H // hf), proj.in_front,
+                        ctx.xyz_window_packed, hf, wf, K=8,
+                        win=self.cfg.render.knn_proj_window)
+
+    def blend_views(self, ctx: SceneContext, xyz: Tensor, pose: Tensor,
+                    feature_agg: Tensor, mv_feat: Tensor, mv_vis: Tensor) -> Tensor:
+        """Colour [N, 3] of each sample: a softmax over views of the
+        blending MLP's weights on the views' rgb; views that do not see the
+        sample are left out. The MLP's first layer runs as partial products
+        over its row blocks, so feature_agg enters once per sample and the
+        [N, V, W+3+C+5] input is never built."""
+        fc = self.rgb_blending_mlp
+        W, Cf = feature_agg.shape[-1], mv_feat.shape[-1]
+        k_fa, k_mv, k_vis, k_rd = fc.fc0.weight.split([W, Cf, 1, 4], dim=1)
+        ray_diff = compute_angle(xyz, pose, ctx.sv.poses).transpose(0, 1)  # [N, V, 4]
+        h = F.linear(feature_agg, k_fa, fc.fc0.bias)[:, None, :]
+        h = h + mv_feat @ k_mv.T + mv_vis * k_vis[:, 0] + ray_diff @ k_rd.T
+        bw = fc.fc2(_leaky(fc.fc1(_leaky(h))))
+        bw = torch.where(mv_vis == 0, torch.full_like(bw, -1e9), bw)
+        bw = torch.softmax(bw, dim=1)
+        return torch.sum(mv_feat[:, :, :3] * bw, dim=1)
+
+    def composite(self, z_vals: Tensor, sigma: Tensor, rgb: Tensor
+                  ) -> Dict[str, Tensor]:
+        """Alpha compositing of [R, S] densities and [R, S, 3] colours
+        (last interval 1e2) -> rgb, depth, weights, depth_uncertainty."""
+        deltas = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                            torch.full_like(z_vals[:, :1], 1e2)], dim=-1)
+        alphas = 1.0 - torch.exp(-deltas * sigma)
+        shifted = torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas[:, :-1]], dim=-1)
+        weights = alphas * torch.cumprod(shifted, dim=-1)
+        rgb_out = torch.sum(weights[..., None] * rgb, dim=1)
+        if self.cfg.render.white_bkgd:
+            rgb_out = rgb_out + (1.0 - torch.sum(weights, dim=-1)[:, None])
+        depth = torch.sum(weights * z_vals, dim=-1)
+        return {"rgb": rgb_out, "depth": depth, "weights": weights,
+                "depth_uncertainty": torch.sum(weights * (z_vals - depth[:, None]) ** 2,
+                                               dim=-1)}
+
+    def render_rays(self, ctx: SceneContext, rays_o: Tensor, rays_d: Tensor,
+                    pose: Tensor, train: bool = False) -> Dict[str, Tensor]:
+        """Volume-render rays [R, 3] against the scene context; pose is the
+        query camera's c2w (for the blending angles).
+
+        One projection of all R*S samples serves knn_proj, the multiview
+        aggregation and the validity mask; the neighbour aggregation is one
+        fused_agg launch at N = R*S, K = 8 (render.fused_query_agg).
+        Returns rgb [R,3], depth [R], weights [R,S], mask [R] (more than
+        min(8, S//2) samples seen by two or more views), depth_uncertainty
+        [R], depth_coarse [R] (guided), beta [R] (train) and feat [R,C]
+        (render.render_feature)."""
+        cfg = self.cfg
+        check_render_options(cfg)
+        R = rays_o.shape[0]
+        z_vals, depth_coarse = self.ray_depths(ctx, rays_o, rays_d)
+        S = z_vals.shape[1]
+        xyz = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(-1, 3)
+        direction = torch.cat([rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3),
+                               z_vals.reshape(-1, 1)], dim=-1)
+        H, W = ctx.sv.images.shape[1:3]
+        proj = compute_projections(xyz, ctx.sv.Ks, ctx.sv.poses, H, W)
+        qd = self.query(ctx, xyz, level="fine", K=8, direction=direction,
+                        knn_idx=self.render_knn(ctx, xyz, proj), proj=proj)
+        feature_agg = qd["feature_agg"]
+
+        geo = self.ray_unet(feature_agg.reshape(R, S, -1)).reshape(R * S, -1)
+        sigma = self.sigma_mlp(geo).reshape(R, S)
+        rgb = self.blend_views(ctx, xyz, pose, feature_agg, qd["multiview_feature"],
+                               qd["multiview_visibility"]).reshape(R, S, 3)
+        out = self.composite(z_vals, sigma, rgb)
+        seen = (proj.in_front & proj.inbound).T.reshape(R, S, -1).sum(dim=2) > 1
+        out["mask"] = seen.sum(dim=1) > min(8, S // 2)
+        if depth_coarse is not None:
+            out["depth_coarse"] = depth_coarse
+        if train and cfg.render.use_render_uncertainty:
+            beta = self.beta_mlp(geo).reshape(R, S)
+            out["beta"] = torch.sum(out["weights"] * beta, dim=-1) + self.beta_min
+        if cfg.render.render_feature:
+            feat = self.feat_mlp(feature_agg).reshape(R, S, -1)
+            out["feat"] = torch.sum(out["weights"][..., None] * feat, dim=1)
+        return out
+
+    def render_image(self, ctx: SceneContext, K: Tensor, pose: Tensor, H: int,
+                     W: int) -> Dict[str, Tensor]:
+        """Render an H x W frame in chunks of render.chunk rays (the last
+        chunk may be short: rays are independent) -> each render_rays
+        output as [H, W, ...]."""
+        rays_o, rays_d = get_rays(H, W, K, pose)
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        chunk = self.cfg.render.chunk
+        outs = [self.render_rays(ctx, rays_o[i:i + chunk], rays_d[i:i + chunk], pose)
+                for i in range(0, H * W, chunk)]
+        return {k: torch.cat([o[k] for o in outs]).reshape((H, W) + outs[0][k].shape[1:])
+                for k in outs[0]}
+
+
+def sample_pdf_det(bins: Tensor, weights: Tensor, N_importance: int,
+                   eps: float = 1e-5) -> Tensor:
+    """Deterministic inverse-CDF sampling: bins [R, M+1] are bin EDGES and
+    weights [R, M] their weights -> [R, N_importance] depths at evenly
+    spaced CDF levels 0..1."""
+    R, M = weights.shape
+    if bins.shape[1] != M + 1:
+        raise ValueError(f"bins {tuple(bins.shape)} need one more column than "
+                         f"weights {tuple(weights.shape)}")
+    weights = weights + eps
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
+    u = _linspace01(N_importance, bins).expand(R, -1).contiguous()
+    inds = torch.searchsorted(cdf, u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=M)
+    cdf_b, cdf_a = torch.gather(cdf, 1, below), torch.gather(cdf, 1, above)
+    bins_b, bins_a = torch.gather(bins, 1, below), torch.gather(bins, 1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    return bins_b + (u - cdf_b) / denom * (bins_a - bins_b)

@@ -1,6 +1,6 @@
 """Per-query scene state (counterpart of
 nerfloc_tpu/models/fields/context.py): built once per localization query
-and passed to every query call."""
+(or per rendered frame) and passed to every query and render call."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -37,3 +37,5 @@ class SceneContext:
     feat_fine_src: Tensor                 # [V, Hf, Wf, C]
     fused_fine_packed: Optional[Tensor] = None  # [V*Hf*Wf, 4*(C+32)]
     rgb_packed: Optional[Tensor] = None         # [V*H*W, 12]
+    xyz_window_packed: Optional[Tensor] = None  # [V*Hf*Wf, win^2*4] knn_proj table
+    vis_corner_packed: Optional[Tensor] = None  # [V*Hf*Wf, 4*32], guided sampling only

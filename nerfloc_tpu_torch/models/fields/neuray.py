@@ -38,6 +38,14 @@ def from_inverse_normalized_depth(d_norm: Tensor, near: Tensor, far: Tensor) -> 
     return torch.minimum(torch.maximum(-1.0 / d_inv, near), far)
 
 
+def depth2inv_dists(depth: Tensor, near: Tensor, far: Tensor) -> Tensor:
+    """Sample intervals in inverse-normalized depth along the last axis;
+    the last interval is 1e6."""
+    d = inverse_normalize_unclamped(depth, near, far)
+    return torch.cat([d[..., 1:] - d[..., :-1],
+                      torch.full_like(d[..., :1], 1e6)], dim=-1)
+
+
 def _reflect_pad(x: Tensor, lo: int, hi: int) -> Tensor:
     return F.pad(x, (lo, hi, lo, hi), mode="reflect") if (lo or hi) else x
 
@@ -246,3 +254,25 @@ def compute_visibility(depth: Tensor, mean: Tensor, var: Tensor, vis: Tensor,
     mix = torch.cat([aw, 1.0 - aw], dim=-1)
     cdf0 = (0.5 + 0.5 * torch.tanh((d - mean) * var)) * vis
     return torch.sum((1.0 - cdf0) * mix, dim=-1)
+
+
+def compute_alpha_prob(depth: Tensor, interval: Tensor, mean: Tensor, var: Tensor,
+                       vis: Tensor, aw: Tensor, near: Tensor, far: Tensor,
+                       eps: float = 1e-5):
+    """(alpha logit, visibility, hit probability) along query rays.
+
+    depth [..., dn] metric projected depths; interval [..., dn] sample
+    intervals in inverse-normalized depth; mean/var [..., dn, 2];
+    vis/aw [..., dn, 1]. Each sample spans half the interval on each side."""
+    d = inverse_normalize_unclamped(torch.clamp(depth, min=1e-5), near, far)
+    half = interval / 2.0
+    half_ext = torch.cat([half[..., :1], half], dim=-1)
+    near_b = d - half_ext[..., :-1]
+    far_b = d + half_ext[..., 1:]
+    mix = torch.cat([aw, 1.0 - aw], dim=-1)
+    cdf0 = (0.5 + 0.5 * torch.tanh((near_b[..., None] - mean) * var)) * vis
+    cdf1 = (0.5 + 0.5 * torch.tanh((far_b[..., None] - mean) * var)) * vis
+    visibility = torch.sum((1.0 - cdf0) * mix, dim=-1)
+    hit_prob = torch.sum((cdf1 - cdf0) * mix, dim=-1)
+    alpha_logit = torch.log(hit_prob / (visibility - hit_prob + eps) + eps)
+    return alpha_logit, visibility, hit_prob

@@ -7,6 +7,7 @@ from typing import NamedTuple
 import torch
 
 from ...geometry.cameras import camera_project
+from ...geometry.math import safe_normalize
 from ...ops.interp import bilinear_sample_views
 
 Tensor = torch.Tensor
@@ -47,3 +48,14 @@ def project_and_sample(xyz: Tensor, Ks: Tensor, c2ws: Tensor, images: Tensor,
     feat = bilinear_sample_views(featmaps, proj.uv * feature_uv_scale(h, w, H, W, xyz))
     mask = (proj.in_front & proj.inbound).to(xyz.dtype)
     return rgb.transpose(0, 1), feat.transpose(0, 1), mask.T[..., None]
+
+
+def compute_angle(xyz: Tensor, query_pose: Tensor, support_poses: Tensor) -> Tensor:
+    """Ray-angle features [V, N, 4]: the unit difference of the
+    point->query-camera and point->support-camera directions, and their
+    dot product."""
+    ray2tar = safe_normalize(query_pose[:3, 3][None, :] - xyz)          # [N, 3]
+    ray2src = safe_normalize(support_poses[:, None, :3, 3] - xyz[None])  # [V, N, 3]
+    diff = safe_normalize(ray2tar[None] - ray2src)
+    dot = torch.sum(ray2tar[None] * ray2src, dim=-1, keepdim=True)
+    return torch.cat([diff, dot], dim=-1)

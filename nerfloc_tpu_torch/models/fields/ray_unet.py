@@ -1,0 +1,77 @@
+"""1-D U-Net over the samples of each ray (counterpart of
+nerfloc_tpu/models/fields/ray_unet.py).
+
+k=3 convolutions with a LayerNorm over (samples, channels) and ELU, three
+max-pool levels down and three transposed-convolution levels up with skip
+connections, and a last convolution over [input, up]. The module boundary
+is [R, S, C] as in the JAX package; inside, tensors are [R, C, S] for
+nn.Conv1d. Weight names follow the flax tree (conv1/conv, conv1/ln, ...).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+
+class LayerNormSC(nn.Module):
+    """LayerNorm over (samples, channels) of each ray with an [S, C] affine;
+    population variance, eps 1e-5. Acts on [R, C, S]."""
+
+    def __init__(self, samples: int, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(samples, channels))
+        self.bias = nn.Parameter(torch.zeros(samples, channels))
+
+    def forward(self, x: Tensor) -> Tensor:
+        mean = x.mean(dim=(-2, -1), keepdim=True)
+        var = x.var(dim=(-2, -1), keepdim=True, unbiased=False)
+        y = (x - mean) * torch.rsqrt(var + 1e-5)
+        return y * self.scale.T + self.bias.T
+
+
+class ConvBlock(nn.Module):
+    """conv (k=3 'same', or transposed with stride 2 doubling S) + LN + ELU."""
+
+    def __init__(self, cin: int, cout: int, samples: int, transpose: bool = False):
+        super().__init__()
+        if transpose:
+            self.conv = nn.ConvTranspose1d(cin, cout, 3, stride=2, padding=1,
+                                           output_padding=1)
+        else:
+            self.conv = nn.Conv1d(cin, cout, 3, padding=1)
+        self.ln = LayerNormSC(samples, cout)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.elu(self.ln(self.conv(x)))
+
+
+class RayUnet(nn.Module):
+    """[R, S, C] -> [R, S, C] for a fixed S (the LayerNorm shapes depend on
+    it) divisible by 8."""
+
+    def __init__(self, in_channels: int, n_samples: int):
+        super().__init__()
+        S, C = n_samples, in_channels
+        self.n_samples = S
+        self.conv1 = ConvBlock(C, 64, S)
+        self.conv2 = ConvBlock(64, 128, S // 2)
+        self.conv3 = ConvBlock(128, 128, S // 4)
+        self.trans_conv3 = ConvBlock(128, 128, S // 4, transpose=True)
+        self.trans_conv2 = ConvBlock(256, 64, S // 2, transpose=True)
+        self.trans_conv1 = ConvBlock(128, 32, S, transpose=True)
+        self.conv_out = ConvBlock(C + 32, C, S)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.shape[1] != self.n_samples:
+            raise ValueError(f"RayUnet built for S={self.n_samples}, got {x.shape[1]}")
+        x = x.transpose(1, 2)
+        p1 = F.max_pool1d(self.conv1(x), 2)
+        p2 = F.max_pool1d(self.conv2(p1), 2)
+        p3 = F.max_pool1d(self.conv3(p2), 2)
+        u3 = self.trans_conv3(p3)
+        u2 = self.trans_conv2(torch.cat([p2, u3], dim=1))
+        u1 = self.trans_conv1(torch.cat([p1, u2], dim=1))
+        return self.conv_out(torch.cat([x, u1], dim=1)).transpose(1, 2)

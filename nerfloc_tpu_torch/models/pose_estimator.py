@@ -1,7 +1,7 @@
 """Top-level localization model, eval path (counterpart of
 nerfloc_tpu/models/pose_estimator.py: `extract_2d`, `build_context`,
 `_keypoints`, the eval branch of `match`, `localize_parts`,
-`localize_forward`).
+`localize_forward`, `render_image_rays`).
 
 A query runs: backbone on [1+V] images -> appearance FiLM -> scene context
 (NeuRay ray features, neural points, multiview aggregation) -> Gumbel top-k
@@ -35,12 +35,19 @@ Tensor = torch.Tensor
 def init_params(module: nn.Module, seed: int) -> None:
     """Seeded random weights in flax's default scheme: Linear/Conv kernels
     ~ N(0, 1/fan_in) clipped at 2 sigma (lecun normal), zero biases; norm
-    scales stay 1. Drawn on the CPU, so every device gets the same values."""
+    scales stay 1. Drawn on the CPU, so every device gets the same values.
+    The conditional NeRF's render heads are drawn last, so the other
+    weights are the same as in a model without them."""
     g = torch.Generator().manual_seed(seed)
+    heads = {id(m) for name, head in module.named_modules()
+             if name.rsplit(".", 1)[-1] in ConditionalNeRF.RENDER_HEADS
+             for m in head.modules()}
     with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
-                fan_in = m.weight[0].numel()
+        for m in sorted(module.modules(), key=lambda m: id(m) in heads):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
+                w_in = m.weight.transpose(0, 1) if isinstance(m, nn.ConvTranspose1d) \
+                    else m.weight
+                fan_in = w_in[0].numel()
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
                 w = torch.randn(m.weight.shape, generator=g).clamp_(-2.0, 2.0) * std
                 m.weight.copy_(w)
@@ -189,3 +196,11 @@ class NerfPoseEstimator(nn.Module):
                 "score_matrix": m["score_matrix"], "desc_3d": desc_3d,
                 "pose": pnp.c2w, "num_inliers": pnp.num_inliers,
                 "pnp_success": pnp.success}
+
+    @torch.no_grad()
+    def render_image_rays(self, batch: Mapping[str, Tensor], rays_o: Tensor,
+                          rays_d: Tensor) -> Dict[str, Tensor]:
+        """Render rays [R, 3] of the query view against its support views
+        (scene context, then ConditionalNeRF.render_rays at the query pose)."""
+        ctx, _ = self.build_context(batch)
+        return self.model_3d.render_rays(ctx, rays_o, rays_d, batch["pose"], train=False)

@@ -1,6 +1,7 @@
 """Bilinear sampling and resizing on NHWC maps (counterpart of
 nerfloc_tpu/ops/interp.py: `bilinear_sample` in border mode,
-`resize_nearest`, `pack_bilinear_corners`, `packed_bilinear_sample_views`).
+`resize_nearest`, `pack_bilinear_corners`, `pack_window`,
+`packed_bilinear_sample_views`).
 
 Pixel coordinates reference pixel centres: uv=(0,0) reads feat[0,0]
 exactly (grid_sample align_corners=True semantics). These are plain PyTorch
@@ -58,6 +59,16 @@ def pack_bilinear_corners(feats: Tensor) -> Tensor:
                         torch.roll(feats, -1, dims=1),
                         torch.roll(feats, (-1, -1), dims=(1, 2))], dim=-1)
     return packed.reshape(V * H * W, 4 * C)
+
+
+def pack_window(feats: Tensor, offsets) -> Tensor:
+    """[V, H, W, C] -> [V*H*W, len(offsets)*C]; row (v, y, x) holds
+    f[y+dy, x+dx] for each (dx, dy) in `offsets` (wraparound rows are never
+    addressed when callers clip the window centre to the interior)."""
+    V, H, W, C = feats.shape
+    packed = torch.cat([torch.roll(feats, (-dy, -dx), dims=(1, 2))
+                        for dx, dy in offsets], dim=-1)
+    return packed.reshape(V * H * W, len(offsets) * C)
 
 
 def packed_bilinear_sample_views(packed: Tensor, H: int, W: int,

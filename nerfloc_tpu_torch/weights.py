@@ -5,10 +5,14 @@ The port's submodules are named after the flax tree, so a module's path
 in `named_modules()` is its flax path. Conversions:
   Dense   [in, out]            -> nn.Linear.weight [out, in]
   Conv    [kh, kw, in, out]    -> nn.Conv2d.weight [out, in, kh, kw]
+  Conv    [k, in, out] (1-D)   -> nn.Conv1d.weight [out, in, k]
+  ConvTranspose [k, in, out]   -> nn.ConvTranspose1d.weight [in, out, k],
+          flipped along k: flax's transposed convolution correlates the
+          dilated input with the kernel as stored, torch's with its mirror
   MultiHeadDotProductAttention query/key/value [in, heads, hd] and out
           [heads, hd, out] (+ biases [heads, hd] / [out]) -> nn.Linear
   LayerNorm scale/bias         -> weight/bias
-  INorm scale/bias             -> scale/bias
+  INorm, LayerNormSC scale/bias -> scale/bias
   FrozenBatchNorm ('frozen' collection) -> buffers of the same names
 `agg_params_from_flax` builds the fused kernel's weights straight from a
 ConditionalNeRF flax tree, as extract_agg_params does in the JAX package.
@@ -23,6 +27,7 @@ from torch import nn
 
 from .models.backbone import FrozenBatchNorm
 from .models.fields.neuray import INorm
+from .models.fields.ray_unet import LayerNormSC
 from .models.transformer import DotProductAttention
 from .ops.fused_agg import emb_perm
 
@@ -57,7 +62,7 @@ def load_flax_variables(module: nn.Module, variables: Tree) -> List[str]:
     """Copy a flax variables tree ({'params': ..., 'frozen': ...}) into
     `module`, whose flax path is the root of that tree. Every parameter and
     buffer of the module must be found. Returns the flax leaves that have
-    no counterpart in the port (modules of unported paths)."""
+    no counterpart in the port (none for a model the port covers)."""
     params, frozen = variables["params"], variables.get("frozen", {})
     used = set()
 
@@ -85,16 +90,21 @@ def load_flax_variables(module: nn.Module, variables: Tree) -> List[str]:
             _set(mod.weight, p["kernel"].T)
             if mod.bias is not None:
                 _set(mod.bias, p["bias"])
-        elif isinstance(mod, nn.Conv2d):
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
             p = take(params, path, "params")
-            _set(mod.weight, np.transpose(p["kernel"], (3, 2, 0, 1)))
+            k = np.asarray(p["kernel"])
+            if isinstance(mod, nn.ConvTranspose1d):
+                k = np.transpose(k[::-1], (1, 2, 0))
+            else:
+                k = np.transpose(k, (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2)))
+            _set(mod.weight, k)
             if mod.bias is not None:
                 _set(mod.bias, p["bias"])
         elif isinstance(mod, nn.LayerNorm):
             p = take(params, path, "params")
             _set(mod.weight, p["scale"])
             _set(mod.bias, p["bias"])
-        elif isinstance(mod, INorm):
+        elif isinstance(mod, (INorm, LayerNormSC)):
             p = take(params, path, "params")
             _set(mod.scale, p["scale"])
             _set(mod.bias, p["bias"])

@@ -21,9 +21,6 @@ from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device
 from nerfloc_tpu_torch.weights import load_flax_variables
 
 CPU = torch.device("cpu")
-# flax leaves of modules the localization slice never runs (render head)
-RENDER_ONLY = ("model_3d/ray_unet", "model_3d/sigma_mlp", "model_3d/feat_mlp",
-               "model_3d/rgb_blending_mlp", "model_3d/beta_mlp")
 
 
 def jax_cfg():
