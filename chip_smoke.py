@@ -25,7 +25,20 @@ Phases (any failure exits non-zero):
      kernel's own device time inside one dense call;
   8. render_image of a 240x320 frame in chunks of 2048 rays: 38 launches
      in the first frame, then the median ms/frame over 3 more;
-  9. kernel and plain-version times at the query shapes (every tile size)
+  9. the train step: (a) a tiny step (V=3 at 32x32, the test config's
+     sizes) on CUDA through the kernel against the same step on the CPU
+     through the plain versions, same weights and noise: loss, its terms
+     and every parameter gradient; (b) the kernel's forward and its
+     replayed backward at the render train shape (N=65536, K=8) against
+     the plain version under autograd, and the forward's kernel and
+     plain-version times there; (c) make_train_step at full width
+     (default Config with render.fused_query_agg=True, V=5 at 240x320,
+     1024 keypoints, 1024 rays dense-64, B=1): 2 warm-up steps and 10
+     timed steps on one fixed batch, the launch counters set to 0 just
+     before each step and read just after (exactly 3 fused_agg launches),
+     loss and grad_norm finite every step, and the loss at the first
+     step's noise lower after the steps than before them;
+ 10. kernel and plain-version times at the query shapes (every tile size)
      and at the render shape (N=262144, K=8), each kernel's bound at the
      FP32 peak and at the TF32 tensor-core peak.
 The last lines are a `kernels` JSON object, the card's name and power
@@ -35,6 +48,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -49,6 +63,8 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 RENDER_N, RENDER_K = 262144, 8   # 4096 rays x 64 samples, 8 neighbours
 RENDER_RAYS, RENDER_CHUNK = 4096, 2048
+TRAIN_N = 1024 * 64              # N_rand rays x 64 samples of the train render
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
 # CUDA path vs CPU path end to end: gathered neighbour features are rounded
 # to bf16 as in the reference, so a last-bit f32 difference upstream (cuDNN
@@ -459,6 +475,211 @@ def pnp_fixture(dev):
         fail("PnP fixture did not recover the pose")
 
 
+def tiny_cfg(**render):
+    """The CPU tests' tiny config (__graft_entry__._tiny_cfg sizes), fused."""
+    from nerfloc_tpu_torch.configs import Config, MatchingConfig, RenderConfig
+    return Config(backbone2d_fpn_dim=32, model_3d_hidden_dim=32, matcher_hidden_dim=48,
+                  n_views_train=3, n_views_test=3,
+                  render=RenderConfig(N_samples=8, N_rand=32, chunk=64, fused_query_agg=True,
+                                      **render),
+                  matching=MatchingConfig(fine_num_3d_keypoints=32,
+                                          coarse_num_3d_keypoints=32))
+
+
+def train_noise(model, batch, seed: int):
+    """Seeded (kp_gumbel [B, P], ray_idx [B, N_rand]) for a batch with a
+    leading axis B, drawn on the CPU."""
+    import torch
+    from nerfloc_tpu_torch.solve.pnp import gumbel_noise
+    B, H, W = batch["image"].shape[:3]
+    g = torch.Generator().manual_seed(seed)
+    P = model.n_coarse_points({k: v[0] for k, v in batch.items()})
+    kp = gumbel_noise((B, P), g, "cpu")
+    idx = torch.stack([torch.randperm(H * W, generator=g)[:model.cfg.render.N_rand]
+                       for _ in range(B)])
+    return kp, idx
+
+
+def small_train_vs_cpu(dev):
+    """Phase 9a: one tiny train step on CUDA (kernel) against the CPU
+    (plain versions), same weights and noise; the loss, its terms and every
+    parameter gradient within PATH_TOL of their scale. The gradient bound
+    of a leaf adds three times its spread on the CPU alone: the largest
+    change of that leaf's gradient when every weight moves by one f32
+    rounding (2^-22 relative, two seeded draws of signs). Gathered
+    neighbour features are rounded to bf16, so such a change moves some of
+    them by a whole bf16 step (2^-9) and the fine-matching gradients by up
+    to about 1 %; the CUDA path's own f32 differences do the same.
+    Returns the fused_agg launches of the CUDA step."""
+    import torch
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    from nerfloc_tpu_torch.train.state import TrainState
+    from nerfloc_tpu_torch.train.step import make_train_step
+    cfg = tiny_cfg()
+    nb = stack_batches([device_batch(make_query_batch(n_views=3, H=32, W=32, seed=0))])
+    cpu = torch.device("cpu")
+    runs = []
+    for d, perturb in ((cpu, 0), (dev, 0), (cpu, 1), (cpu, 2)):
+        m = NerfPoseEstimator(cfg, device=d, seed=3)
+        if perturb:
+            g = torch.Generator().manual_seed(perturb)
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(1 + 2.0 ** -22 * (torch.randint(0, 2, p.shape, generator=g) * 2 - 1))
+        b = to_device_batch(nb, d)
+        kp, idx = train_noise(m, b, seed=11)
+        fa.LAUNCHES.n = 0
+        metrics = make_train_step(m, cfg)(TrainState(m, cfg), b, kp_gumbel=kp.to(d),
+                                          ray_idx=idx.to(d))
+        launches = fa.LAUNCHES.n
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+                 for n, p in m.named_parameters()}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, launches))
+    (cpu_m, cpu_g, _), (gpu_m, gpu_g, launches) = runs[:2]
+    spread = {n: max(float((r[1][n] - g).norm()) for r in runs[2:]) for n, g in cpu_g.items()}
+    for k in ("loss", "coarse_loss", "fine_loss", "ref_depth_loss", "render_loss", "grad_norm"):
+        err = abs(cpu_m[k] - gpu_m[k]) / max(abs(cpu_m[k]), 1e-12)
+        print(f"small train {k}: cuda {gpu_m[k]:.6g} cpu {cpu_m[k]:.6g} rel err {err:.3g} "
+              f"(tol {PATH_TOL})")
+        if not err <= PATH_TOL:
+            fail(f"small train {k} differs between CUDA and CPU by {err:.3g} relative")
+    # per leaf |g_cuda - g_cpu| <= PATH_TOL |g_cpu| + 1e-8 |g_cpu|_all
+    # (+ 3 spread): the second term covers leaves whose gradient is zero in
+    # exact arithmetic (biases before a normalization or a softmax); the
+    # worst relative errors are reported among the others
+    total = sum(float(g.norm()) ** 2 for g in cpu_g.values()) ** 0.5
+    errs = {n: (float((gpu_g[n] - g).norm()), float(g.norm())) for n, g in cpu_g.items()}
+    plain = [n for n, (d, s) in errs.items() if d > PATH_TOL * s + 1e-8 * total]
+    bad = [n for n in plain if errs[n][0] > PATH_TOL * errs[n][1] + 1e-8 * total + 3 * spread[n]]
+    worst = sorted(((d / s, spread[n] / s, n) for n, (d, s) in errs.items()
+                    if s > 1e-6 * total), reverse=True)[:5]
+    print(f"small train gradients: {len(errs) - len(plain)} of {len(errs)} leaves within "
+          f"{PATH_TOL} of their norm (+1e-8 of the total {total:.4g}), the other {len(plain)} "
+          f"within it plus 3x their CPU spread; worst (relative error, relative CPU spread): "
+          + ", ".join(f"{n} {e:.3g} {sp:.3g}" for e, sp, n in worst))
+    if bad:
+        fail("small train gradients differ between CUDA and CPU: " + ", ".join(
+            f"{n} {errs[n][0]:.3g} of {errs[n][1]:.3g}" for n in bad))
+    print(f"small train: fused_agg launches in the CUDA step = {launches}")
+    if launches != 3:
+        fail(f"expected 3 fused_agg launches in a train step, got {launches}")
+    return launches
+
+
+def check_fused_agg_train_shape(dev, card: str):
+    """Phase 9b: kernel forward and replayed backward at the render train
+    shape against reference_agg under autograd (every differentiable
+    input: mv_agg, nb_feat and the weights); then the forward's kernel and
+    plain-version times and bounds there. Returns (max abs error, times)."""
+    import torch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    x = agg_inputs(TRAIN_N, RENDER_K, 195, 128, seed=9, dev=dev)
+    cot = torch.randn(TRAIN_N, 128, generator=torch.Generator().manual_seed(1)).to(dev)
+    res = []
+    for use_kernel in (True, False):
+        leaves = {"mv_agg": x["mv_agg"].clone().requires_grad_(True),
+                  "nb_feat": x["nb_feat"].clone().requires_grad_(True),
+                  **{k: v.clone().requires_grad_(True) for k, v in x["params"].items()}}
+        args = dict(x, mv_agg=leaves["mv_agg"], nb_feat=leaves["nb_feat"],
+                    params={k: leaves[k] for k in fa.PARAM_KEYS})
+        if use_kernel:
+            out = fa._FusedAgg.apply(*[args[k] for k in ("xyz", "direction", "mv_agg", "nb_xyz",
+                                                         "nb_dir", "nb_feat", "scale", "freqs")],
+                                     *[args["params"][k] for k in fa.PARAM_KEYS])
+        else:
+            out = fa.reference_agg(**args)
+        grads = torch.autograd.grad(out, list(leaves.values()), cot)
+        res.append((out.detach(), dict(zip(leaves, grads))))
+        del out, grads, leaves, args
+    (out, g), (ref, g_ref) = res
+    err = float((out - ref).abs().max())
+    worst = max(float((g[k] - g_ref[k]).abs().max()) for k in g)
+    bad = [k for k in g if not torch.allclose(g[k], g_ref[k], atol=ATOL, rtol=RTOL)]
+    print(f"fused_agg train shape N={TRAIN_N} K={RENDER_K}: forward max_abs_err={err:.3g}, "
+          f"backward max_abs_err={worst:.3g} over {len(g)} inputs (tol {ATOL}+{RTOL}*|ref|)")
+    if not torch.allclose(out, ref, atol=ATOL, rtol=RTOL) or bad:
+        fail(f"fused_agg at the train shape disagrees with reference_agg ({bad or 'forward'})")
+    with torch.no_grad():
+        k_ms = device_ms(lambda: fa.launch(**x), iters=10)
+        p_ms = device_ms(lambda: fa.reference_agg(**x), iters=5)
+    cost = agg_cost(TRAIN_N, RENDER_K, 195, 128, x["params"], x["freqs"])
+    f32_ms, b_ms, unit = agg_bounds(cost)
+    if k_ms < b_ms:
+        fail(f"fused_agg at the train shape reads faster than its bound ({k_ms} < {b_ms} ms)")
+    print(f"fused_agg train shape N={TRAIN_N} K={RENDER_K}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} ({100 * b_ms / k_ms:.1f} %), FP32 "
+          f"bound {f32_ms:.4f} ms; {card}")
+    return err, {"train_ms": k_ms, "train_plain_ms": p_ms, "train_bound_ms": b_ms,
+                 "train_bound_f32_ms": f32_ms}
+
+
+def train_full_width(dev, card: str):
+    """Phase 9c: make_train_step at full width. Returns its numbers."""
+    import torch
+    from nerfloc_tpu_torch.configs import Config, RenderConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    from nerfloc_tpu_torch.train.state import TrainState
+    from nerfloc_tpu_torch.train.step import make_train_step
+    cfg = Config(render=RenderConfig(fused_query_agg=True))
+    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    batch = to_device_batch(stack_batches([device_batch(make_query_batch(
+        n_views=5, H=240, W=320, seed=0))]), dev)
+    state = TrainState(model, cfg)
+    step = make_train_step(model, cfg)
+    kp0, idx0 = (v.to(dev) for v in train_noise(model, batch, seed=0))
+
+    def first_noise_loss():
+        with torch.no_grad():
+            return float(model.train_forward({k: v[0] for k, v in batch.items()},
+                                             kp_gumbel=kp0[0], ray_idx=idx0[0])["loss"])
+    loss_before = first_noise_loss()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, launches = [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        kp, idx = (kp0, idx0) if i == 0 else \
+            (v.to(dev) for v in train_noise(model, batch, seed=i))
+        torch.cuda.synchronize()
+        fa.LAUNCHES.n = 0
+        t0 = time.perf_counter()
+        metrics = step(state, batch, kp_gumbel=kp, ray_idx=idx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches.append(fa.LAUNCHES.n)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        print(f"train step {i}{' (warm-up)' if i < TRAIN_WARMUP else ''}: loss {loss:.6g} "
+              f"grad_norm {gnorm:.6g} matching_iou {float(metrics['matching_iou']):.4f} "
+              f"psnr {float(metrics['psnr']):.3f} fused_agg launches {launches[-1]} "
+              f"{ms:.2f} ms")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"train step {i}: loss {loss} or grad_norm {gnorm} not finite")
+        if launches[-1] != 3:
+            fail(f"train step {i}: expected 3 fused_agg launches, got {launches[-1]}")
+        losses.append(loss)
+        if i >= TRAIN_WARMUP:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss_after = first_noise_loss()
+    print(f"train: loss at the first step's noise {loss_before:.6g} before, {loss_after:.6g} "
+          f"after {len(losses)} steps")
+    if not loss_after < loss_before:
+        fail(f"train: loss did not fall ({loss_before} -> {loss_after})")
+    ms = statistics.median(times)
+    V, H, W = batch["topk_images"].shape[1:4]
+    print(f"train step V={V} {H}x{W}, B=1, {cfg.matching.fine_num_3d_keypoints} keypoints, "
+          f"{cfg.render.N_rand} rays x {cfg.render.N_samples} samples: median "
+          f"{ms:.2f} ms/step over {TRAIN_STEPS} (min {min(times):.2f}, max {max(times):.2f}), "
+          f"{1e3 / ms:.3f} steps/s; peak memory {peak:.2f} GiB; {card}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return {"train_ms_per_step": ms, "train_launches_per_step": launches[-1],
+            "train_peak_gib": peak, "train_loss_before": loss_before,
+            "train_loss_after": loss_after}
+
+
 def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str):
     """Kernel, plain-version and bound times of the fused aggregation at the
     query shapes (coarse K=8 and fine K=1 launches, N = keypoints; every
@@ -612,10 +833,15 @@ def main() -> int:
     pnp_fixture(dev)
     small_render_vs_cpu(dev)
     render = render_full_width(dev, card)
+    small_train_vs_cpu(dev)
+    train_err, train_agg = check_fused_agg_train_shape(dev, card)
+    max_err = max(max_err, train_err)
+    train = train_full_width(dev, card)
 
     kernels = [{**time_fused_agg(model, cfg, dev, launches, max_err, card),
                 "render_launches_per_call": render["render_launches_per_call"],
-                "render_kernel_ms_in_call": render["render_kernel_ms_in_call"]}]
+                "render_kernel_ms_in_call": render["render_kernel_ms_in_call"],
+                "train_launches_per_step": train["train_launches_per_step"], **train_agg}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Multi-view feature aggregation with NeuRay visibility weighting
 (counterpart of nerfloc_tpu/models/fields/aggregator.py, unpruned paths),
-and the NeuRay alpha weights of the guided render pass."""
+the NeuRay alpha weights of the guided render pass, and the support views'
+depth supervision."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -9,7 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.interp import bilinear_sample_views, packed_bilinear_sample_views
+from ...ops.interp import (bilinear_sample_views, nearest_indices,
+                           packed_bilinear_sample_views)
 from . import neuray
 from .projector import (Projection, compute_projections, feature_uv_scale,
                         project_and_sample)
@@ -77,6 +79,27 @@ class MultiviewFeatureAggregator(nn.Module):
     def predict_visibility(self, sv: SupportViews, xyz: Tensor):
         """(vis [V, N], depth_diff [V, N]) of world points."""
         return self._decode_visibility(sv, *self._sample_ray_feats(sv, xyz))
+
+    def predict_ref_depths(self, sv: SupportViews) -> Tensor:
+        """Depth maps [V, h, w] of the support views decoded from their ray
+        features (first mixture mean)."""
+        V, h, w, C = sv.vis_featmaps.shape
+        mean = self.dist_decoder.predict_mean(sv.vis_featmaps.reshape(V, h * w, C))
+        return neuray.decode_ref_depths(mean, sv.near, sv.far).reshape(V, h, w)
+
+    def ref_depth_loss(self, sv: SupportViews, depths_gt: Tensor) -> Tensor:
+        """Mean squared error of the decoded depths against depths_gt [V, H, W]
+        (nearest-resized to [V, h, w]) in inverse-normalized depth, over the
+        pixels with depth > 0."""
+        pred = self.predict_ref_depths(sv)
+        V, h, w = pred.shape
+        yi = nearest_indices(depths_gt.shape[1], h, pred.device)
+        xi = nearest_indices(depths_gt.shape[2], w, pred.device)
+        gt = depths_gt[:, yi][:, :, xi]
+        mask = (gt > 0).to(pred.dtype)
+        gt_n = neuray.to_inverse_normalized_depth(gt, sv.near, sv.far)
+        pd_n = neuray.to_inverse_normalized_depth(pred, sv.near, sv.far)
+        return torch.sum((gt_n - pd_n) ** 2 * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
     def predict_alpha_weights(self, sv: SupportViews, que_pts: Tensor,
                               que_dists: Tensor, vis_packed: Optional[Tensor] = None

@@ -33,9 +33,19 @@ def inverse_normalize_unclamped(depth: Tensor, near: Tensor, far: Tensor) -> Ten
 
 
 def from_inverse_normalized_depth(d_norm: Tensor, near: Tensor, far: Tensor) -> Tensor:
+    """clip(-1 / d_inv, near, far) with a finite gradient everywhere.
+
+    d_inv is exactly 0 for one f32 value of d_norm (near 1 / (1 - near/far),
+    which decoded means reach), and there the plain form's gradient is
+    0 * inf = NaN. Where 1 / d_inv^2 would overflow, the reciprocal takes a
+    stand-in operand and the value is the clip's: far just below zero, near
+    at +0 and above. Values are the plain form's, NaN included."""
     near_inv, far_inv = -1.0 / near, -1.0 / far
     d_inv = d_norm * (far_inv - near_inv) + near_inv
-    return torch.minimum(torch.maximum(-1.0 / d_inv, near), far)
+    ok = ~(d_inv >= -1e-18)
+    depth = -1.0 / torch.where(ok, d_inv, torch.full_like(d_inv, -1.0))
+    depth = torch.where(ok, depth, torch.where(torch.signbit(d_inv), far, near))
+    return torch.minimum(torch.maximum(depth, near), far)
 
 
 def depth2inv_dists(depth: Tensor, near: Tensor, far: Tensor) -> Tensor:
@@ -241,6 +251,9 @@ class MixtureLogisticsDistDecoder(nn.Module):
         vis = torch.sigmoid(self.vis_decoder(feats))
         aw = torch.sigmoid(self.aw_decoder(feats))
         return mean, var, vis, aw
+
+    def predict_mean(self, feats: Tensor) -> Tensor:
+        return F.softplus(self.mean_decoder(feats))
 
 
 def decode_ref_depths(mean: Tensor, near: Tensor, far: Tensor) -> Tensor:

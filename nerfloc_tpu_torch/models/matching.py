@@ -1,8 +1,8 @@
-"""Coarse sparse-to-dense and fine windowed matching heads, eval path
-(counterpart of nerfloc_tpu/models/matching.py)."""
+"""Coarse sparse-to-dense and fine windowed matching heads and their
+losses (counterpart of nerfloc_tpu/models/matching.py)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +36,27 @@ class S2DMatching(nn.Module):
     def forward(self, desc3d: Tensor, desc2d: Tensor) -> Tensor:
         return torch.cat([self.mlps(blk[:, None, :] * desc2d[None, :, :])
                           for blk in torch.split(desc3d, self.row_tile)], dim=0)
+
+
+def sigmoid_focal_loss(logits: Tensor, targets: Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> Tensor:
+    """Elementwise focal binary cross-entropy on logits."""
+    pred = torch.sigmoid(logits)
+    alpha_w = targets * alpha + (1.0 - targets) * (1.0 - alpha)
+    pt = targets * (1.0 - pred) + (1.0 - targets) * pred
+    bce = (torch.clamp(logits, min=0.0) - logits * targets
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    return alpha_w * torch.pow(pt, gamma) * bce
+
+
+def coarse_loss(conf_logits: Tensor, conf_gt: Tensor,
+                valid: Optional[Tensor] = None) -> Tensor:
+    """Mean focal loss over the [N, M] score grid (over `valid` cells)."""
+    loss = sigmoid_focal_loss(conf_logits, conf_gt)
+    if valid is None:
+        return torch.mean(loss)
+    w = valid.to(loss.dtype)
+    return torch.sum(loss * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
 def mutual_nearest_matches(scores: Tensor, thr: float) -> Tuple[Tensor, Tensor]:
@@ -92,3 +113,32 @@ class FineMatching(nn.Module):
         var = heat @ grid ** 2 - coords ** 2
         std = torch.sum(torch.sqrt(torch.clamp(var, min=1e-10)), dim=-1)
         return torch.cat([coords, std[:, None]], dim=-1)
+
+
+def _correct_pairs(expec_f_gt: Tensor, pair_mask: Tensor, thr: float) -> Tensor:
+    return (torch.amax(torch.abs(expec_f_gt), dim=1) < thr) & pair_mask
+
+
+def fine_loss_l2_std(expec_f: Tensor, expec_f_gt: Tensor, pair_mask: Tensor,
+                     correct_thr: float = 1.0) -> Tensor:
+    """Squared offset error of the pairs whose target lies inside the
+    window, each weighted by its inverse spread over the mean inverse
+    spread of the pairs (the weight carries no gradient)."""
+    correct = _correct_pairs(expec_f_gt, pair_mask, correct_thr)
+    inv_std = 1.0 / torch.clamp(expec_f[:, 2], min=1e-10)
+    w_all = pair_mask.to(inv_std.dtype)
+    mean_inv = torch.sum(inv_std * w_all) / torch.clamp(torch.sum(w_all), min=1.0)
+    weight = (inv_std / torch.clamp(mean_inv, min=1e-10)).detach()
+    offset_l2 = torch.sum((expec_f_gt - expec_f[:, :2]) ** 2, dim=-1)
+    c = correct.to(offset_l2.dtype)
+    return torch.sum(offset_l2 * c * weight) / torch.clamp(torch.sum(c), min=1.0)
+
+
+def fine_loss_l2(expec_f: Tensor, expec_f_gt: Tensor, pair_mask: Tensor,
+                 correct_thr: float = 1.0) -> Tensor:
+    """Mean squared offset error of the pairs whose target lies inside the
+    window."""
+    correct = _correct_pairs(expec_f_gt, pair_mask, correct_thr)
+    offset_l2 = torch.sum((expec_f_gt - expec_f[:, :2]) ** 2, dim=-1)
+    w = correct.to(offset_l2.dtype)
+    return torch.sum(offset_l2 * w) / torch.clamp(torch.sum(w), min=1.0)

@@ -1,17 +1,24 @@
-"""Top-level localization model, eval path (counterpart of
+"""Top-level localization model (counterpart of
 nerfloc_tpu/models/pose_estimator.py: `extract_2d`, `build_context`,
-`_keypoints`, the eval branch of `match`, `localize_parts`,
-`localize_forward`, `render_image_rays`).
+`_keypoints`, `build_3d_2d_pairs`, `match`, `localize_parts`,
+`localize_forward`, `train_forward`, `compute_render_loss`,
+`render_image_rays`).
 
 A query runs: backbone on [1+V] images -> appearance FiLM -> scene context
 (NeuRay ray features, neural points, multiview aggregation) -> Gumbel top-k
 keypoints -> coarse 3D descriptors (fused aggregation, K=8) -> coarse and
 fine matching (fused aggregation, K=1) -> P3P-RANSAC. All of it stays on
 the model's device; nothing is read back to the host.
+
+A training query replaces PnP by the losses: the keypoints projected with
+the ground-truth pose give the coarse targets and the fine windows, the
+support views' decoded depths are held against their sensor depths, and
+N_rand rays of the query view are rendered (fused aggregation, K=8) and
+held against its pixels and its fine features.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,17 +26,22 @@ from torch import nn
 
 from ..configs import Config
 from ..device import DeviceLike, resolve_device
+from ..geometry.cameras import camera_project, rays_for_pixels, world_to_camera
 from ..geometry.embedder import Embedder, position_embedding_sine
+from ..ops.interp import bilinear_sample
 from ..solve.pnp import gumbel_noise, ransac_pnp
 from .appearance import AppearanceAdaptLayer, appearance_embedding
 from .backbone import Backbone2D
 from .fields.conditional_nerf import ConditionalNeRF
 from .fields.context import SceneContext
-from .matching import (FineMatching, FinePreprocess, S2DMatching, gather_windows,
+from .fields.losses import img2mse, mse2psnr, rendering_loss
+from .matching import (FineMatching, FinePreprocess, S2DMatching, coarse_loss,
+                       fine_loss_l2, fine_loss_l2_std, gather_windows,
                        mutual_nearest_matches)
 from .transformer import SelfCrossTransformer
 
 Tensor = torch.Tensor
+Pairs = Tuple[Tensor, Tensor, Tensor]   # (j_gt, gt_mask, proj_gt_coarse)
 
 
 def init_params(module: nn.Module, seed: int) -> None:
@@ -53,6 +65,12 @@ def init_params(module: nn.Module, seed: int) -> None:
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
+
+
+def _cell_index(x: Tensor, n: int) -> Tensor:
+    """clip(int(x), 0, n - 1), with int() truncating towards zero and
+    saturating as XLA's float-to-int conversion does."""
+    return torch.clamp(x, -1.0, float(n)).long().clamp(0, n - 1)
 
 
 def to_device_batch(batch: Mapping[str, np.ndarray], device: torch.device
@@ -127,10 +145,33 @@ class NerfPoseEstimator(nn.Module):
             q2d["stride_coarse"], q2d["stride_fine"])
         return ctx, q2d
 
+    @staticmethod
+    def build_3d_2d_pairs(pts3d: Tensor, depth_map: Tensor, K: Tensor, pose: Tensor,
+                          H: int, W: int, stride: int, thr: float) -> Pairs:
+        """Ground-truth pairs of 3D keypoints [N, 3] with the query's coarse
+        cells, from their projection with the true pose -> (j_gt [N] cell
+        index, gt_mask [N], proj [N, 2] at coarse scale). A pair holds when
+        the keypoint projects into the frame and within `thr` of the query
+        depth there; when fewer than 4 hold, every projecting one does."""
+        u, v, z = camera_project(world_to_camera(pose, pts3d), K)
+        proj_valid = (u >= 0) & (v >= 0) & (u < W) & (v < H) & (z > 0)
+        d = depth_map[_cell_index(v, H), _cell_index(u, W)]
+        pos_mask = proj_valid & (torch.abs(d - z) < thr)
+        pos_mask = torch.where(pos_mask.sum() < 4, proj_valid, pos_mask)
+        j_gt = (_cell_index(u / stride, W // stride)
+                + _cell_index(v / stride, H // stride) * (W // stride))
+        return j_gt, pos_mask, torch.stack([u, v], dim=-1) / stride
+
     def match(self, ctx: SceneContext, q2d, batch, desc_3d: Tensor,
-              pts3d: Tensor, pts3d_ndc: Tensor) -> Dict[str, Tensor]:
+              pts3d: Tensor, pts3d_ndc: Tensor,
+              pairs: Optional[Pairs] = None) -> Dict[str, Tensor]:
         """Coarse S2D matching + mutual NN, then the fine window head on the
-        predicted pairs (eval branch)."""
+        predicted pairs (eval branch). Train branch (`pairs` from
+        build_3d_2d_pairs): the fine head runs on the ground-truth pairs,
+        and the output adds coarse_loss (focal loss of the score logits
+        against the pairs' cells), fine_loss (cfg.fine_matching_loss_type)
+        and fine_err (mean fine offset error of the pairs in pixels, no
+        gradient)."""
         cfg = self.cfg
         H, W = batch["image"].shape[0], batch["image"].shape[1]
         sc, sf = q2d["stride_coarse"], q2d["stride_fine"]
@@ -143,12 +184,14 @@ class NerfPoseEstimator(nn.Module):
         pos_3d = self.pos_emd_3d(pts3d_ndc)
         d3, d2 = self.coarse_transformer(desc_3d[None], pos_3d[None],
                                          desc_2d[None], pos_2d[None])
-        scores = torch.sigmoid(self.coarse_matcher(d3[0], d2[0]))
+        conf = self.coarse_matcher(d3[0], d2[0])
+        scores = torch.sigmoid(conf)
         match_j, match_mask = mutual_nearest_matches(scores, cfg.matching.thr)
+        j_fine, pair_mask = (match_j, match_mask) if pairs is None else pairs[:2]
 
         wsz = cfg.matching.fine_window_size
         ratio = sc // sf
-        centers = torch.stack([(match_j % wc) * ratio, (match_j // wc) * ratio], dim=-1)
+        centers = torch.stack([(j_fine % wc) * ratio, (j_fine // wc) * ratio], dim=-1)
         desc_3d_fine = self.model_3d.query_fine(ctx, pts3d)
         patches, _ = gather_windows(q2d["feat_fine"][0], centers, wsz)
         patches = self.fine_preprocess(patches)
@@ -157,10 +200,25 @@ class NerfPoseEstimator(nn.Module):
         f3, f2 = self.fine_transformer(desc_3d_fine[:, None, :], pos_3d[:, None, :],
                                        patches, pos_win)
         expec_f = self.fine_matcher(f3[:, 0, :], f2)
-        mkps2d_f = centers.to(expec_f.dtype) + expec_f[:, :2] * (wsz // 2)
-        return {"score_matrix": scores, "match_j": match_j, "match_mask": match_mask,
-                "expec_f": expec_f, "mkps2d_f": mkps2d_f * sf, "mkps3d": pts3d,
-                "pair_mask": match_mask}
+        mkps2d_c = centers.to(expec_f.dtype)
+        mkps2d_f = mkps2d_c + expec_f[:, :2] * (wsz // 2)
+        out = {"score_matrix": scores, "match_j": match_j, "match_mask": match_mask,
+               "expec_f": expec_f, "mkps2d_f": mkps2d_f * sf, "mkps3d": pts3d,
+               "pair_mask": pair_mask}
+        if pairs is None:
+            return out
+        j_gt, gt_mask, proj_gt = pairs
+        conf_gt = torch.zeros_like(conf)
+        conf_gt[torch.arange(conf.shape[0], device=dev), j_gt] = gt_mask.to(conf.dtype)
+        out["coarse_loss"] = coarse_loss(conf, conf_gt)
+        expec_f_gt = (proj_gt * ratio - mkps2d_c) / (wsz // 2)
+        fine_loss = fine_loss_l2_std if cfg.fine_matching_loss_type == "l2_with_std" \
+            else fine_loss_l2
+        out["fine_loss"] = fine_loss(expec_f, expec_f_gt, gt_mask)
+        err = torch.linalg.vector_norm(expec_f_gt - expec_f[:, :2].detach(), dim=-1)
+        denom = torch.clamp(gt_mask.sum(), min=1).to(err.dtype)
+        out["fine_err"] = (torch.sum(err * gt_mask) / denom) * (wsz // 2) * sf
+        return out
 
     def localize_parts(self, batch: Mapping[str, Tensor], kp_gumbel: Tensor):
         ctx, q2d = self.build_context(batch)
@@ -196,6 +254,78 @@ class NerfPoseEstimator(nn.Module):
                 "score_matrix": m["score_matrix"], "desc_3d": desc_3d,
                 "pose": pnp.c2w, "num_inliers": pnp.num_inliers,
                 "pnp_success": pnp.success}
+
+    def train_forward(self, batch: Mapping[str, Tensor], kp_gumbel: Optional[Tensor] = None,
+                      ray_idx: Optional[Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+        """One training query -> its losses and what the metrics need.
+
+        kp_gumbel [P_coarse]: Gumbel noise of the keypoint draw; ray_idx
+        [N_rand]: distinct flat pixel indices (y * W + x) of the rendered
+        rays; each is drawn from `generator` (on the model's device) when not
+        given. Returns loss (the weighted sum), its terms coarse_loss,
+        fine_loss, ref_depth_loss and render_loss (cfg.train_pose /
+        cfg.train_nerf), the metrics fine_err and psnr, and match_j,
+        match_mask, j_gt, gt_mask for matching_iou."""
+        cfg = self.cfg
+        dev = self.device
+        H, W = batch["image"].shape[0], batch["image"].shape[1]
+        if kp_gumbel is None:
+            kp_gumbel = gumbel_noise((self.n_coarse_points(batch),), generator, dev)
+        if ray_idx is None and cfg.train_nerf:
+            ray_idx = torch.randperm(H * W, generator=generator, device=dev)[:cfg.render.N_rand]
+        ctx, q2d = self.build_context(batch)
+        out: Dict[str, Tensor] = {}
+        loss = torch.zeros((), device=dev)
+        if cfg.train_pose:
+            desc_3d, pts3d, pts3d_ndc = self.model_3d.query_coarse(ctx, kp_gumbel)
+            pairs = self.build_3d_2d_pairs(pts3d, batch["depth"], batch["K"], batch["pose"],
+                                           H, W, q2d["stride_coarse"],
+                                           cfg.matching.coarse_matching_depth_thresh)
+            m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs)
+            out.update({k: m[k] for k in ("coarse_loss", "fine_loss", "fine_err",
+                                          "match_j", "match_mask")})
+            out["j_gt"], out["gt_mask"] = pairs[:2]
+            loss = loss + cfg.coarse_loss_weight * m["coarse_loss"] \
+                + cfg.fine_loss_weight * m["fine_loss"]
+        depths_gt = batch.get("topk_depths_gt", batch["topk_depths"])
+        out["ref_depth_loss"] = self.model_3d.multiview_aggregator.ref_depth_loss(
+            ctx.sv, depths_gt)
+        loss = loss + cfg.ref_depth_loss_weight * out["ref_depth_loss"]
+        if cfg.train_nerf:
+            out["render_loss"], out["psnr"] = self.compute_render_loss(ctx, q2d, batch,
+                                                                       ray_idx)
+            loss = loss + cfg.render_loss_weight * out["render_loss"]
+        out["loss"] = loss
+        return out
+
+    def compute_render_loss(self, ctx: SceneContext, q2d, batch: Mapping[str, Tensor],
+                            ray_idx: Tensor) -> Tuple[Tensor, Tensor]:
+        """Render the query view's pixels ray_idx [N_rand] (train outputs)
+        -> (rendering_loss against their colours, depths with
+        cfg.use_depth_supervision, and fine features, psnr). The feature
+        target samples the stride-s fine map at (p + 0.5) / s - 0.5 (the
+        map upsampled to H x W, align_corners=False) and keeps its
+        gradient."""
+        cfg = self.cfg
+        W = batch["image"].shape[1]
+        ui, vi = ray_idx % W, ray_idx // W
+        uv = torch.stack([ui.float(), vi.float()], dim=-1)
+        rays_o, rays_d = rays_for_pixels(uv, batch["K"], batch["pose"])
+        preds = self.model_3d.render_rays(ctx, rays_o, rays_d, batch["pose"], train=True)
+        mask = preds["mask"]
+        if "target_mask" in batch:
+            mask = mask & (batch["target_mask"][vi, ui] > 0)
+        targets = {"rgb": batch["image"][vi, ui], "mask": mask}
+        if cfg.use_depth_supervision:
+            targets["depth"] = batch["depth"][vi, ui]
+            targets["depth_range"] = (batch["near"], batch["far"])
+        if cfg.render.render_feature:
+            s = q2d["stride_fine"]
+            targets["feat"] = bilinear_sample(q2d["feat_fine"][0], (uv + 0.5) / s - 0.5)
+        loss = rendering_loss(preds, targets, use_depth=cfg.use_depth_supervision)
+        psnr = mse2psnr(img2mse(preds["rgb"].detach(), targets["rgb"], mask=mask))
+        return loss, psnr
 
     @torch.no_grad()
     def render_image_rays(self, batch: Mapping[str, Tensor], rays_o: Tensor,

@@ -18,7 +18,7 @@ import torch
 from nerfloc_tpu_torch import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerfloc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerfloc_tpu")
 
 
 def _port_sources():
