@@ -40,7 +40,24 @@ Phases (any failure exits non-zero):
      step's noise lower after the steps than before them;
  10. kernel and plain-version times at the query shapes (every tile size)
      and at the render shape (N=262144, K=8), each kernel's bound at the
-     FP32 peak and at the TF32 tensor-core peak.
+     FP32 peak and at the TF32 tensor-core peak;
+ 11. the eval step: (a) a tiny eval step (the test config's sizes, cascade
+     matching and refinement on, 128 refinement rays, two queries) on CUDA
+     against the CPU, same weights and noise: discrete outputs equal, poses
+     and errors within PATH_TOL plus 3x their CPU spread under a 2^-22
+     weight change; (b) the kernel at the refinement shape (N=32768, K=8)
+     against the plain version, forward and the replayed backward's input
+     gradients (xyz, direction, mv_agg), and its times and bound there;
+     (c) make_eval_step at full width (default Config with
+     render.fused_query_agg=True, cascade_matching=True, optimize_pose=True;
+     V=5 at 240x320, 512 refinement rays x 64 samples, 50 Adam steps),
+     one query per step: the launch counters set to 0 just before each
+     query and read just after (exactly 55 fused_agg launches, 52 of them
+     in refinement), the pose a rotation and its errors finite, 2 warm-up
+     and 5 timed queries (ms/query and device ms of localization, cascade
+     and refinement), the accepted cascade poses and refinements; the
+     per-scene table of eval_dataset over 4 queries of 2 seeds (batches of
+     3, the last one padded) and render_psnr_eval over one view, finite.
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result.
@@ -65,6 +82,11 @@ RENDER_N, RENDER_K = 262144, 8   # 4096 rays x 64 samples, 8 neighbours
 RENDER_RAYS, RENDER_CHUNK = 4096, 2048
 TRAIN_N = 1024 * 64              # N_rand rays x 64 samples of the train render
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+REFINE_N = 512 * 64              # refinement rays x 64 samples
+# per eval query: query_coarse and query_fine (2), the cascade's query_fine
+# (1), 50 refinement steps and the losses before and after them (52)
+EVAL_LAUNCHES, REFINE_LAUNCHES = 55, 52
+EVAL_WARMUP, EVAL_QUERIES = 2, 5
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
 # CUDA path vs CPU path end to end: gathered neighbour features are rounded
 # to bf16 as in the reference, so a last-bit f32 difference upstream (cuDNN
@@ -680,6 +702,298 @@ def train_full_width(dev, card: str):
             "train_loss_after": loss_after}
 
 
+def eval_cfg(base=None, **kw):
+    """The eval path's config: `base` (default: the full-width Config with
+    render.fused_query_agg=True) with cascade matching and photometric
+    refinement on, and any field of `kw` replaced."""
+    import dataclasses
+    from nerfloc_tpu_torch.configs import Config, RenderConfig
+    base = base or Config(render=RenderConfig(fused_query_agg=True))
+    return dataclasses.replace(base, cascade_matching=True, optimize_pose=True, **kw)
+
+
+def eval_noise(model, batch, seed: int):
+    """Seeded noise of make_eval_step's four streams for a batch with a
+    leading axis B, drawn on the CPU."""
+    import torch
+    from nerfloc_tpu_torch.solve.pnp import gumbel_noise
+    from nerfloc_tpu_torch.solve.pose_refine import sample_refine_pixels
+    cfg = model.cfg
+    B, H, W = batch["image"].shape[:3]
+    g = torch.Generator().manual_seed(seed)
+    P = model.n_coarse_points({k: v[0] for k, v in batch.items()})
+    hyps = (B, cfg.shapes.pnp_hypotheses, cfg.matching.fine_num_3d_keypoints)
+    return {"kp_gumbel": gumbel_noise((B, P), g, "cpu"),
+            "pnp_gumbel": gumbel_noise(hyps, g, "cpu"),
+            "pnp2_gumbel": gumbel_noise(hyps, g, "cpu"),
+            "refine_uv": torch.stack([sample_refine_pixels(
+                H, W, cfg.shapes.pose_refine_rays, generator=g) for _ in range(B)])}
+
+
+def small_eval_vs_cpu(dev):
+    """Phase 11a: the tiny eval step (cascade and refinement on, 128
+    refinement rays) on CUDA (kernel) against the CPU (plain versions),
+    same weights and noise, two queries. The model seed and the noise give
+    each query 5 first-pass matches (a RANSAC minimal set from fewer than 3
+    would take masked points: an ill-posed solve; the check asks for 4). Discrete outputs
+    equal; poses and errors within PATH_TOL plus three times their spread
+    on the CPU alone when every weight moves by one f32 rounding (the
+    refinement's 50 Adam steps carry a change of the scene context on).
+    Returns the CUDA step's fused_agg launches."""
+    import torch
+    from nerfloc_tpu_torch.configs import StaticShapeConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    from nerfloc_tpu_torch.train.step import make_eval_step
+    cfg = eval_cfg(base=tiny_cfg(), shapes=StaticShapeConfig(pose_refine_rays=128))
+    nb = stack_batches([device_batch(make_query_batch(n_views=3, H=32, W=32, seed=s))
+                        for s in (0, 1)])
+    cpu = torch.device("cpu")
+    runs = []
+    for d, perturb in ((cpu, 0), (dev, 0), (cpu, 1), (cpu, 2)):
+        m = NerfPoseEstimator(cfg, device=d, seed=2)
+        if perturb:
+            g = torch.Generator().manual_seed(perturb)
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(1 + 2.0 ** -22 * (torch.randint(0, 2, p.shape, generator=g) * 2 - 1))
+        b = to_device_batch(nb, d)
+        noise = {k: v.to(d) for k, v in eval_noise(m, b, seed=11).items()}
+        fa.LAUNCHES.n = 0
+        out = make_eval_step(m, cfg)(b, noise=noise)
+        runs.append(({k: v.cpu() for k, v in out.items()}, fa.LAUNCHES.n))
+    (cpu_o, _), (gpu_o, launches) = runs[:2]
+    if int(cpu_o["num_matches"].min()) < 4:
+        fail(f"small eval: the fixture's queries have {cpu_o['num_matches'].tolist()} "
+             "matches, fewer than 4")
+    for k in ("num_inliers", "num_matches", "pnp_success", "matching_iou"):
+        if not torch.equal(cpu_o[k], gpu_o[k]):
+            fail(f"small eval {k} differs between CUDA and CPU: {gpu_o[k]} vs {cpu_o[k]}")
+    for k in ("pose_pred", "rot_err_deg", "trans_err_m"):
+        err = float((cpu_o[k] - gpu_o[k]).abs().max())
+        spread = max(float((r[0][k] - cpu_o[k]).abs().max()) for r in runs[2:])
+        print(f"small eval {k}: cuda vs cpu max_abs_err={err:.3g} (tol {PATH_TOL} + 3 x "
+              f"the CPU spread {spread:.3g})")
+        if not err <= PATH_TOL + 3 * spread:
+            fail(f"small eval {k} differs between CUDA and CPU by {err}")
+    print(f"small eval: fused_agg launches in the CUDA step (2 queries) = {launches}")
+    if launches != 2 * EVAL_LAUNCHES:
+        fail(f"expected {2 * EVAL_LAUNCHES} fused_agg launches in the small eval step, "
+             f"got {launches}")
+    return launches
+
+
+def check_fused_agg_refine_shape(dev, card: str):
+    """Phase 11b: the kernel at the refinement shape (512 rays x 64
+    samples, K=8) against reference_agg: the forward, and the replayed
+    backward's gradients in the inputs the refinement differentiates (the
+    samples' xyz and direction, their multiview feature) against autograd
+    through the plain version; then the forward's kernel and plain-version
+    times and bounds. Returns (max abs error, times)."""
+    import torch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    x = agg_inputs(REFINE_N, RENDER_K, 195, 128, seed=13, dev=dev)
+    cot = torch.randn(REFINE_N, 128, generator=torch.Generator().manual_seed(2)).to(dev)
+    keys = ("xyz", "direction", "mv_agg")
+    res = []
+    for use_kernel in (True, False):
+        leaves = {k: x[k].clone().requires_grad_(True) for k in keys}
+        args = {**x, **leaves}
+        if use_kernel:
+            out = fa._FusedAgg.apply(*[args[k] for k in ("xyz", "direction", "mv_agg", "nb_xyz",
+                                                         "nb_dir", "nb_feat", "scale", "freqs")],
+                                     *[x["params"][k] for k in fa.PARAM_KEYS])
+        else:
+            out = fa.reference_agg(**args)
+        grads = torch.autograd.grad(out, list(leaves.values()), cot)
+        res.append((out.detach(), dict(zip(keys, grads))))
+        del out, grads, leaves, args
+    (out, g), (ref, g_ref) = res
+    err = float((out - ref).abs().max())
+    worst = max(float((g[k] - g_ref[k]).abs().max()) for k in keys)
+    bad = [k for k in keys if not torch.allclose(g[k], g_ref[k], atol=ATOL, rtol=RTOL)]
+    print(f"fused_agg refine shape N={REFINE_N} K={RENDER_K}: forward max_abs_err={err:.3g}, "
+          f"backward max_abs_err={worst:.3g} in {', '.join(keys)} (tol {ATOL}+{RTOL}*|ref|)")
+    if not torch.allclose(out, ref, atol=ATOL, rtol=RTOL) or bad:
+        fail(f"fused_agg at the refine shape disagrees with reference_agg ({bad or 'forward'})")
+    with torch.no_grad():
+        k_ms = device_ms(lambda: fa.launch(**x), iters=20)
+        p_ms = device_ms(lambda: fa.reference_agg(**x), iters=10)
+    f32_ms, b_ms, unit = agg_bounds(agg_cost(REFINE_N, RENDER_K, 195, 128, x["params"],
+                                             x["freqs"]))
+    if k_ms < b_ms:
+        fail(f"fused_agg at the refine shape reads faster than its bound ({k_ms} < {b_ms} ms)")
+    print(f"fused_agg refine shape N={REFINE_N} K={RENDER_K}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} ({100 * b_ms / k_ms:.1f} %), FP32 "
+          f"bound {f32_ms:.4f} ms; {card}")
+    return max(err, worst), {"refine_ms": k_ms, "refine_plain_ms": p_ms,
+                             "refine_bound_ms": b_ms, "refine_bound_f32_ms": f32_ms}
+
+
+class EvalProbe:
+    """Records, inside the real eval step, each stage's device time (CUDA
+    events), the poses its stages return (the first and cascade PnP poses,
+    the pose before and after refinement) and the fused_agg launches of the
+    refinement."""
+
+    def __init__(self, model):
+        from nerfloc_tpu_torch.train import step as step_mod
+        self.timer = StageTimer()
+        self.poses = defaultdict(list)
+        self.timer.wrap(model, "localize_parts", "localize")
+        self.timer.wrap(model, "match_cascade", "cascade")
+        self.timer.wrap(step_mod, "count_pose_inliers", "cascade")
+        for attr, name in (("ransac_pnp", "pnp"), ("refine_pose", "refinement")):
+            self._record(step_mod, attr, name)
+
+    def _record(self, owner, attr: str, name: str):
+        self.timer.wrap(owner, attr, name)
+        timed = getattr(owner, attr)
+
+        def run(*a, **kw):
+            from nerfloc_tpu_torch.ops import fused_agg as fa
+            n0 = fa.LAUNCHES.n
+            out = timed(*a, **kw)
+            if name == "pnp":
+                self.poses["pnp"].append(out.c2w)
+            else:
+                self.poses["refine_in"].append(a[1])
+                self.poses["refine_out"].append(out)
+                self.poses["refine_launches"].append(fa.LAUNCHES.n - n0)
+            return out
+        setattr(owner, attr, run)
+
+    def take(self):
+        """(stage ms, first PnP poses, cascade PnP poses, poses into and out
+        of refinement, refinement launches) since the last take(); the first
+        PnP of a query counts as localization, the second as the cascade."""
+        ev = self.timer.events
+        pnp = ev.pop("pnp", [])
+        ev["localize"] += pnp[0::2]
+        ev["cascade"] += pnp[1::2]
+        ms = {k: v for k, (v, _) in self.timer.take().items()}
+        p, self.poses = self.poses, defaultdict(list)
+        return (ms, p["pnp"][0::2], p["pnp"][1::2], p["refine_in"], p["refine_out"],
+                p["refine_launches"])
+
+    def restore(self):
+        self.timer.restore()
+
+
+def synthetic_items(seeds, H: int, W: int):
+    """Query items of make_query_batch over two named scenes, as a
+    sequence eval_dataset reads."""
+    from nerfloc_tpu_torch.data import make_query_batch
+    items = []
+    for i, s in enumerate(seeds):
+        it = make_query_batch(n_views=5, H=H, W=W, seed=s)
+        it.update(scene=f"scene{i % 2}", filename=f"query{i}")
+        items.append(it)
+    return items
+
+
+def eval_full_width(dev, card: str):
+    """Phase 11c: make_eval_step at full width (default Config with
+    render.fused_query_agg=True, cascade_matching=True, optimize_pose=True;
+    V=5 at 240x320, seeded weights and noise), one query per step: 2
+    warm-up queries and 5 timed ones, the launch counters set to 0 just
+    before each and read just after (exactly EVAL_LAUNCHES); the pose a
+    rotation, the errors finite; the accepted cascade poses and
+    refinements; then eval_dataset over 4 queries of 2 seeds (the last
+    batch padded) and render_psnr_eval over one view. Returns its numbers."""
+    import torch
+    from nerfloc_tpu_torch.data import device_batch, stack_batches
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    from nerfloc_tpu_torch.train.evaluate import (eval_dataset, make_render_psnr_fn,
+                                                  render_psnr_eval)
+    from nerfloc_tpu_torch.train.step import make_eval_step
+    H, W = 240, 320
+    cfg = eval_cfg()
+    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    step = make_eval_step(model, cfg)
+    items = synthetic_items(range(EVAL_WARMUP + EVAL_QUERIES), H, W)
+    probe = EvalProbe(model)
+    times, parts, launches, refine_launches = [], [], [], []
+    accepted = {"cascade": 0, "refinement": 0}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i, it in enumerate(items):
+            batch = to_device_batch(stack_batches([device_batch(it)]), dev)
+            noise = {k: v.to(dev) for k, v in eval_noise(model, batch, seed=100 + i).items()}
+            torch.cuda.synchronize()
+            fa.LAUNCHES.n = 0
+            t0 = time.perf_counter()
+            out = step(batch, noise=noise)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches.append(fa.LAUNCHES.n)
+            stage_ms, pnp1, pnp2, ref_in, ref_out, ref_n = probe.take()
+            refine_launches.append(ref_n[0])
+            pose = out["pose_pred"][0]
+            check_pose(pose, f"eval query {i}")
+            rot, trans = float(out["rot_err_deg"][0]), float(out["trans_err_m"][0])
+            if not (math.isfinite(rot) and math.isfinite(trans)):
+                fail(f"eval query {i}: errors not finite ({rot}, {trans})")
+            if launches[-1] != EVAL_LAUNCHES or refine_launches[-1] != REFINE_LAUNCHES:
+                fail(f"eval query {i}: expected {EVAL_LAUNCHES} fused_agg launches, "
+                     f"{REFINE_LAUNCHES} of them in refinement, got {launches[-1]} and "
+                     f"{refine_launches[-1]}")
+            if not torch.equal(ref_out[0], pose):
+                fail(f"eval query {i}: pose_pred is not the refinement's result")
+            used_cascade = torch.equal(ref_in[0], pnp2[0]) and not torch.equal(pnp2[0], pnp1[0])
+            refined = not torch.equal(ref_out[0], ref_in[0])
+            accepted["cascade"] += used_cascade
+            accepted["refinement"] += refined
+            warm = i < EVAL_WARMUP
+            print(f"eval query {i}{' (warm-up)' if warm else ''}: rot_err {rot:.4g} deg "
+                  f"trans_err {trans:.4g} m inliers {int(out['num_inliers'][0])} matches "
+                  f"{int(out['num_matches'][0])} matching_iou "
+                  f"{float(out['matching_iou'][0]):.4f} cascade pose "
+                  f"{'kept' if used_cascade else 'rejected'}, refinement "
+                  f"{'accepted' if refined else 'rejected'}; fused_agg launches "
+                  f"{launches[-1]} ({refine_launches[-1]} in refinement); {ms:.2f} ms "
+                  f"(device: " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in stage_ms.items()) + ")")
+            if not warm:
+                times.append(ms)
+                parts.append(stage_ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        probe.restore()
+    ms = statistics.median(times)
+    part_ms = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    print(f"eval step V=5 {H}x{W}, cascade + refinement ({cfg.shapes.pose_refine_rays} rays "
+          f"x {cfg.render.N_samples} samples, 50 Adam steps): median {ms:.2f} ms/query over "
+          f"{len(times)} after {EVAL_WARMUP} warm-up queries (min {min(times):.2f}, max "
+          f"{max(times):.2f}); device ms by stage (median): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in part_ms.items())
+          + f"; fused_agg launches per query {launches[-1]}; accepted over "
+          f"{EVAL_WARMUP + EVAL_QUERIES} queries: cascade poses {accepted['cascade']}, "
+          f"refinements {accepted['refinement']}; peak memory {peak:.2f} GiB; {card}")
+
+    table_items = synthetic_items((0, 1, 0, 1), H, W)
+    res = eval_dataset(table_items, step, 3, {0: "scene0", 1: "scene1"}, cfg, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    print(f"eval_dataset over 4 queries of 2 seeds (batches of 3): {json.dumps(res)}")
+    for name, row in res.items():
+        if not all(math.isfinite(v) for v in row.values()) or not 0 <= row["pose_acc"] <= 1:
+            fail(f"eval_dataset row {name} malformed: {row}")
+    if res["avg"]["n"] != 4 or res["avg"]["files"] != 4:
+        fail(f"eval_dataset counted {res['avg']['n']} queries, expected 4")
+    psnr = render_psnr_eval(make_render_psnr_fn(model), table_items, max_views=1)
+    print(f"render_psnr_eval over one {H}x{W} view: {psnr}")
+    if psnr.get("n_rendered") != 1 or not math.isfinite(psnr.get("psnr_test", math.nan)):
+        fail(f"render_psnr_eval malformed: {psnr}")
+    del model, step
+    torch.cuda.empty_cache()
+    return {"eval_ms_per_query": ms, "eval_part_ms": part_ms,
+            "eval_launches_per_query": launches[-1],
+            "refine_launches_per_query": refine_launches[-1], "eval_peak_gib": peak,
+            "eval_accepted": accepted}
+
+
 def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str):
     """Kernel, plain-version and bound times of the fused aggregation at the
     query shapes (coarse K=8 and fine K=1 launches, N = keypoints; every
@@ -837,11 +1151,18 @@ def main() -> int:
     train_err, train_agg = check_fused_agg_train_shape(dev, card)
     max_err = max(max_err, train_err)
     train = train_full_width(dev, card)
+    small_eval_vs_cpu(dev)
+    refine_err, refine_agg = check_fused_agg_refine_shape(dev, card)
+    max_err = max(max_err, refine_err)
+    evals = eval_full_width(dev, card)
 
     kernels = [{**time_fused_agg(model, cfg, dev, launches, max_err, card),
                 "render_launches_per_call": render["render_launches_per_call"],
                 "render_kernel_ms_in_call": render["render_kernel_ms_in_call"],
-                "train_launches_per_step": train["train_launches_per_step"], **train_agg}]
+                "train_launches_per_step": train["train_launches_per_step"], **train_agg,
+                "eval_launches_per_query": evals["eval_launches_per_query"],
+                "refine_launches_per_query": evals["refine_launches_per_query"],
+                **refine_agg}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

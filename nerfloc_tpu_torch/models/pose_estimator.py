@@ -2,19 +2,23 @@
 nerfloc_tpu/models/pose_estimator.py: `extract_2d`, `build_context`,
 `_keypoints`, `build_3d_2d_pairs`, `match`, `localize_parts`,
 `localize_forward`, `train_forward`, `compute_render_loss`,
-`render_image_rays`).
+`render_image_rays`, `select_visible_mask`, `match_cascade`).
 
 A query runs: backbone on [1+V] images -> appearance FiLM -> scene context
 (NeuRay ray features, neural points, multiview aggregation) -> Gumbel top-k
 keypoints -> coarse 3D descriptors (fused aggregation, K=8) -> coarse and
 fine matching (fused aggregation, K=1) -> P3P-RANSAC. All of it stays on
-the model's device; nothing is read back to the host.
+the model's device; nothing is read back to the host. With
+cfg.cascade_matching a second matcher re-matches the keypoints that a first
+pose estimate sees (`match_cascade`); train/step.py's eval step decides
+which pose to keep.
 
 A training query replaces PnP by the losses: the keypoints projected with
-the ground-truth pose give the coarse targets and the fine windows, the
-support views' decoded depths are held against their sensor depths, and
-N_rand rays of the query view are rendered (fused aggregation, K=8) and
-held against its pixels and its fine features.
+the ground-truth pose give the coarse targets and the fine windows (for
+the cascade matcher too, over the keypoints the ground-truth pose sees),
+the support views' decoded depths are held against their sensor depths,
+and N_rand rays of the query view are rendered (fused aggregation, K=8)
+and held against its pixels and its fine features.
 """
 from __future__ import annotations
 
@@ -67,6 +71,14 @@ def init_params(module: nn.Module, seed: int) -> None:
                     m.bias.zero_()
 
 
+def select_visible_mask(pts3d: Tensor, pose_c2w: Tensor, K: Tensor, H: int,
+                        W: int) -> Tensor:
+    """[N] bool: the keypoints [N, 3] that project inside the H x W frame,
+    in front of the camera, from a c2w pose."""
+    u, v, z = camera_project(world_to_camera(pose_c2w, pts3d), K)
+    return (u >= 0) & (v >= 0) & (u < W) & (v < H) & (z > 0)
+
+
 def _cell_index(x: Tensor, n: int) -> Tensor:
     """clip(int(x), 0, n - 1), with int() truncating towards zero and
     saturating as XLA's float-to-int conversion does."""
@@ -85,11 +97,11 @@ class NerfPoseEstimator(nn.Module):
 
     def __init__(self, cfg: Config, device: DeviceLike = None, seed: int = 0):
         super().__init__()
-        if cfg.cascade_matching or cfg.simple_3d_model or \
-                cfg.keypoints_3d_source != "depth" or not cfg.encode_appearance:
+        if cfg.simple_3d_model or cfg.keypoints_3d_source != "depth" or \
+                not cfg.encode_appearance:
             raise NotImplementedError(
                 "the port covers the default localization path only "
-                "(no cascade, no simple 3D model, depth keypoints, appearance FiLM)")
+                "(no simple 3D model, depth keypoints, appearance FiLM)")
         self.cfg = cfg
         hd, C = cfg.matcher_hidden_dim, cfg.backbone2d_fpn_dim
         self.backbone2d = Backbone2D(fpn_dim=C, use_fpn=cfg.backbone2d_use_fpn)
@@ -100,6 +112,13 @@ class NerfPoseEstimator(nn.Module):
         self.fine_preprocess = FinePreprocess(C, hd)
         self.fine_transformer = SelfCrossTransformer(hd, 8, 128)
         self.fine_matcher = FineMatching(hd)
+        if cfg.cascade_matching:
+            # the cascade pass's own matcher (match(..., second=True))
+            self.coarse_transformer2 = SelfCrossTransformer(hd, 8, 512)
+            self.coarse_matcher2 = S2DMatching(hd)
+            self.fine_preprocess2 = FinePreprocess(C, hd)
+            self.fine_transformer2 = SelfCrossTransformer(hd, 8, 128)
+            self.fine_matcher2 = FineMatching(hd)
         self.model_3d = ConditionalNeRF(cfg)
         self.adapt_appearance_coarse = AppearanceAdaptLayer(C)
         self.adapt_appearance_fine = AppearanceAdaptLayer(C)
@@ -163,16 +182,26 @@ class NerfPoseEstimator(nn.Module):
         return j_gt, pos_mask, torch.stack([u, v], dim=-1) / stride
 
     def match(self, ctx: SceneContext, q2d, batch, desc_3d: Tensor,
-              pts3d: Tensor, pts3d_ndc: Tensor,
-              pairs: Optional[Pairs] = None) -> Dict[str, Tensor]:
+              pts3d: Tensor, pts3d_ndc: Tensor, pairs: Optional[Pairs] = None,
+              kp_mask: Optional[Tensor] = None, second: bool = False
+              ) -> Dict[str, Tensor]:
         """Coarse S2D matching + mutual NN, then the fine window head on the
         predicted pairs (eval branch). Train branch (`pairs` from
         build_3d_2d_pairs): the fine head runs on the ground-truth pairs,
         and the output adds coarse_loss (focal loss of the score logits
         against the pairs' cells), fine_loss (cfg.fine_matching_loss_type)
         and fine_err (mean fine offset error of the pairs in pixels, no
-        gradient)."""
+        gradient).
+
+        kp_mask [N] bool: keypoints left out of matching (their score
+        logits are -1e9, they match nothing and, in the train branch, are
+        no target). second: the cascade matcher's weights."""
         cfg = self.cfg
+        sfx = "2" if second else ""
+        coarse_tf, coarse_m, fine_pre, fine_tf, fine_m = (
+            getattr(self, n + sfx) for n in ("coarse_transformer", "coarse_matcher",
+                                             "fine_preprocess", "fine_transformer",
+                                             "fine_matcher"))
         H, W = batch["image"].shape[0], batch["image"].shape[1]
         sc, sf = q2d["stride_coarse"], q2d["stride_fine"]
         hc, wc = H // sc, W // sc
@@ -182,11 +211,14 @@ class NerfPoseEstimator(nn.Module):
         desc_2d = self.proj_layer_2d(q2d["feat_coarse"][0].reshape(hc * wc, -1))
         pos_2d = position_embedding_sine(hc, wc, hd // 2, device=dev).reshape(hc * wc, -1)
         pos_3d = self.pos_emd_3d(pts3d_ndc)
-        d3, d2 = self.coarse_transformer(desc_3d[None], pos_3d[None],
-                                         desc_2d[None], pos_2d[None])
-        conf = self.coarse_matcher(d3[0], d2[0])
+        d3, d2 = coarse_tf(desc_3d[None], pos_3d[None], desc_2d[None], pos_2d[None])
+        conf = coarse_m(d3[0], d2[0])
+        if kp_mask is not None:
+            conf = torch.where(kp_mask[:, None], conf, torch.full_like(conf, -1e9))
         scores = torch.sigmoid(conf)
         match_j, match_mask = mutual_nearest_matches(scores, cfg.matching.thr)
+        if kp_mask is not None:
+            match_mask = match_mask & kp_mask
         j_fine, pair_mask = (match_j, match_mask) if pairs is None else pairs[:2]
 
         wsz = cfg.matching.fine_window_size
@@ -194,12 +226,11 @@ class NerfPoseEstimator(nn.Module):
         centers = torch.stack([(j_fine % wc) * ratio, (j_fine // wc) * ratio], dim=-1)
         desc_3d_fine = self.model_3d.query_fine(ctx, pts3d)
         patches, _ = gather_windows(q2d["feat_fine"][0], centers, wsz)
-        patches = self.fine_preprocess(patches)
+        patches = fine_pre(patches)
         pos_win = position_embedding_sine(wsz, wsz, hd // 2, device=dev)
         pos_win = pos_win.reshape(1, wsz * wsz, -1).expand(patches.shape[0], -1, -1)
-        f3, f2 = self.fine_transformer(desc_3d_fine[:, None, :], pos_3d[:, None, :],
-                                       patches, pos_win)
-        expec_f = self.fine_matcher(f3[:, 0, :], f2)
+        f3, f2 = fine_tf(desc_3d_fine[:, None, :], pos_3d[:, None, :], patches, pos_win)
+        expec_f = fine_m(f3[:, 0, :], f2)
         mkps2d_c = centers.to(expec_f.dtype)
         mkps2d_f = mkps2d_c + expec_f[:, :2] * (wsz // 2)
         out = {"score_matrix": scores, "match_j": match_j, "match_mask": match_mask,
@@ -208,6 +239,8 @@ class NerfPoseEstimator(nn.Module):
         if pairs is None:
             return out
         j_gt, gt_mask, proj_gt = pairs
+        if kp_mask is not None:
+            gt_mask = gt_mask & kp_mask
         conf_gt = torch.zeros_like(conf)
         conf_gt[torch.arange(conf.shape[0], device=dev), j_gt] = gt_mask.to(conf.dtype)
         out["coarse_loss"] = coarse_loss(conf, conf_gt)
@@ -225,6 +258,16 @@ class NerfPoseEstimator(nn.Module):
         desc_3d, pts3d, pts3d_ndc = self.model_3d.query_coarse(ctx, kp_gumbel)
         m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc)
         return ctx, q2d, desc_3d, pts3d, pts3d_ndc, m
+
+    def match_cascade(self, ctx: SceneContext, q2d, batch: Mapping[str, Tensor],
+                      desc_3d: Tensor, pts3d: Tensor, pts3d_ndc: Tensor,
+                      pose_init: Tensor) -> Dict[str, Tensor]:
+        """The cascade pass: the second matcher over the keypoints that
+        project into the query frame from pose_init [4, 4] (eval branch)."""
+        H, W = batch["image"].shape[0], batch["image"].shape[1]
+        vis = select_visible_mask(pts3d, pose_init, batch["K"], H, W)
+        return self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, kp_mask=vis,
+                          second=True)
 
     def n_coarse_points(self, batch: Mapping[str, Tensor]) -> int:
         V, H, W = batch["topk_images"].shape[:3]
@@ -265,8 +308,10 @@ class NerfPoseEstimator(nn.Module):
         rays; each is drawn from `generator` (on the model's device) when not
         given. Returns loss (the weighted sum), its terms coarse_loss,
         fine_loss, ref_depth_loss and render_loss (cfg.train_pose /
-        cfg.train_nerf), the metrics fine_err and psnr, and match_j,
-        match_mask, j_gt, gt_mask for matching_iou."""
+        cfg.train_nerf), coarse_loss2 and fine_loss2 (the cascade matcher
+        on the keypoints the ground-truth pose sees, cfg.cascade_matching),
+        the metrics fine_err and psnr, and match_j, match_mask, j_gt,
+        gt_mask for matching_iou."""
         cfg = self.cfg
         dev = self.device
         H, W = batch["image"].shape[0], batch["image"].shape[1]
@@ -288,6 +333,13 @@ class NerfPoseEstimator(nn.Module):
             out["j_gt"], out["gt_mask"] = pairs[:2]
             loss = loss + cfg.coarse_loss_weight * m["coarse_loss"] \
                 + cfg.fine_loss_weight * m["fine_loss"]
+            if cfg.cascade_matching:
+                vis = select_visible_mask(pts3d, batch["pose"], batch["K"], H, W)
+                m2 = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs,
+                                kp_mask=vis, second=True)
+                out["coarse_loss2"], out["fine_loss2"] = m2["coarse_loss"], m2["fine_loss"]
+                loss = loss + cfg.coarse_loss_weight * m2["coarse_loss"] \
+                    + cfg.fine_loss_weight * m2["fine_loss"]
         depths_gt = batch.get("topk_depths_gt", batch["topk_depths"])
         out["ref_depth_loss"] = self.model_3d.multiview_aggregator.ref_depth_loss(
             ctx.sv, depths_gt)

@@ -1,5 +1,6 @@
 """On-device P3P-RANSAC with Gauss-Newton polish, always in f32
-(counterpart of nerfloc_tpu/solve/pnp.py, `minimal='p3p'`).
+(counterpart of nerfloc_tpu/solve/pnp.py, `minimal='p3p'`, and
+`count_pose_inliers`).
 
 All hypotheses are solved at once as batched tensors; no step reads a
 value back to the host. Degenerate samples produce NaN poses that score no
@@ -280,3 +281,17 @@ def ransac_pnp(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor,
     return PnPResult(c2w=c2w, w2c=torch.cat([final34, bottom], dim=0),
                      inliers=inliers, num_inliers=num_inliers,
                      success=num_inliers >= 6)
+
+
+def count_pose_inliers(c2w: Tensor, pts2d: Tensor, pts3d: Tensor, mask: Tensor,
+                       K: Tensor, thresh_px: float = 8.0) -> Tensor:
+    """0-d int32: the matches of mask [N] that a given c2w [4, 4] explains,
+    by ransac_pnp's normalized reprojection error and threshold, so that two
+    candidate poses can be scored on the same match set."""
+    R, t = c2w[:3, :3], c2w[:3, 3]
+    w2c34 = torch.cat([R.T, (-R.T @ t)[:, None]], dim=-1)
+    f = (K[0, 0] + K[1, 1]) / 2.0
+    x_norm = torch.stack([(pts2d[:, 0] - K[0, 2]) / K[0, 0],
+                          (pts2d[:, 1] - K[1, 2]) / K[1, 1]], dim=-1)
+    err = _reproj_err2(w2c34, pts3d.to(x_norm.dtype), x_norm)
+    return torch.sum((err < (thresh_px / f) ** 2) & mask).to(torch.int32)

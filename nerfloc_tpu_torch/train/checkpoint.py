@@ -21,6 +21,11 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 
 STATE_FILE, METRICS_FILE = "state.pt", "metrics.json"
+# the best-checkpoint metrics and their directions: pose_acc and
+# median_trans_err_m of eval_dataset's 'avg' row, psnr_test of
+# render_psnr_eval
+DEFAULT_METRIC_MODES = {"pose_acc": "max", "median_trans_err_m": "min",
+                        "psnr_test": "max"}
 
 
 def _steps(directory: str) -> List[int]:

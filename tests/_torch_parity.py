@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import __graft_entry__ as graft
@@ -23,10 +24,11 @@ from nerfloc_tpu_torch.weights import load_flax_variables
 CPU = torch.device("cpu")
 
 
-def jax_cfg():
+def jax_cfg(**kw):
+    """The tiny config with the fused kernel, and any field replaced."""
     cfg = graft._tiny_cfg()
     return dataclasses.replace(
-        cfg, render=dataclasses.replace(cfg.render, fused_query_agg=True))
+        cfg, render=dataclasses.replace(cfg.render, fused_query_agg=True), **kw)
 
 
 def port_cfg(cfg):
@@ -46,10 +48,11 @@ def t(a) -> torch.Tensor:
 
 
 class TinySetup:
-    """JAX model + variables + batch, and the port model with those weights."""
+    """JAX model + variables + batch, and the port model with those weights
+    (cfg_kw: fields of the tiny config to replace)."""
 
-    def __init__(self):
-        self.cfg = jax_cfg()
+    def __init__(self, **cfg_kw):
+        self.cfg = jax_cfg(**cfg_kw)
         self.np_batch = graft._tiny_batch()
         self.batch = {k: jnp.asarray(v) for k, v in self.np_batch.items()}
         self.jmodel = JaxEstimator(self.cfg)
@@ -63,3 +66,30 @@ class TinySetup:
     def japply(self, fn, *args):
         """Run fn(module, *args) bound to the JAX model's variables."""
         return self.jmodel.apply(self.variables, *args, method=fn)
+
+
+def port_context(model, jctx):
+    """The port model's scene context from a JAX context's fields: the port
+    builds its own tables (ConditionalNeRF.assemble_context) from JAX's
+    support views and neural points."""
+    from nerfloc_tpu_torch.models.fields.aggregator import SupportViews
+    from nerfloc_tpu_torch.models.fields.context import NeuralPoints
+    sv = SupportViews(**{k: t(getattr(jctx.sv, k)) for k in SupportViews._fields})
+
+    def points(p):
+        return NeuralPoints(**{f.name: None if getattr(p, f.name) is None
+                               else t(getattr(p, f.name))
+                               for f in dataclasses.fields(NeuralPoints)})
+    return model.model_3d.assemble_context(sv, points(jctx.coarse), points(jctx.fine),
+                                           t(jctx.feat_coarse_src), t(jctx.feat_fine_src))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads for the module's tests (autouse where a test
+    module imports it): at these tiny sizes more threads only wait on each
+    other, the more so when the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
