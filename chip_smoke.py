@@ -57,7 +57,21 @@ Phases (any failure exits non-zero):
      and 5 timed queries (ms/query and device ms of localization, cascade
      and refinement), the accepted cascade poses and refinements; the
      per-scene table of eval_dataset over 4 queries of 2 seeds (batches of
-     3, the last one padded) and render_psnr_eval over one view, finite.
+     3, the last one padded) and render_psnr_eval over one view, finite;
+ 12. the bf16 compute dtype (compute_dtype_of(Config()), the JAX package's
+     default): (a) the kernel's bf16 instantiation against its plain
+     version (kernel_agg) at the query shapes (every tile size), a ragged
+     N, K = 3 and 12 and the render shape, within BF16_TOL of the plain
+     version's own bf16-vs-f32 distance, and the replayed bf16 backward;
+     (b) the small query and render in bf16, CUDA against the CPU, within
+     the CPU's own bf16-vs-f32 distance; (c) localize_forward in bf16 at
+     full width (exactly 2 bf16 launches and 0 f32 ones per query, the
+     pose a rotation, the median ms/query over 10, peak memory); (d)
+     render_rays in bf16 at full width, dense-64 and guided 16+16 (exactly
+     1 bf16 launch per call, renders finite, rgb in [0, 1], the median
+     ms/call over 10, the kernel's time inside one call); (e) the bf16
+     kernel's times, plain-version times and bound at the bf16 tensor-core
+     peak (the second entry of the `kernels` line).
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result.
@@ -74,9 +88,10 @@ import time
 from collections import defaultdict
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
-# TF32 on the tensor cores, HBM3.
+# TF32 and bf16 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 RENDER_N, RENDER_K = 262144, 8   # 4096 rays x 64 samples, 8 neighbours
 RENDER_RAYS, RENDER_CHUNK = 4096, 2048
@@ -88,6 +103,13 @@ REFINE_N = 512 * 64              # refinement rays x 64 samples
 EVAL_LAUNCHES, REFINE_LAUNCHES = 55, 52
 EVAL_WARMUP, EVAL_QUERIES = 2, 5
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
+# bf16 kernel vs its plain version: both round to bf16 at the same points
+# and differ in the order of their f32 sums, which moves a value across a
+# bf16 rounding boundary now and then (on the CPU, f64 sums in the plain
+# version move it by 0.05x its distance from f32, RMS, and 0.36x, max);
+# the distance must stay within these shares of the plain version's own
+# distance from f32
+BF16_TOL, BF16_TOL_MAX = 0.2, 1.0
 # CUDA path vs CPU path end to end: gathered neighbour features are rounded
 # to bf16 as in the reference, so a last-bit f32 difference upstream (cuDNN
 # vs CPU convolution sum order) can move a value across a bf16 rounding
@@ -154,10 +176,12 @@ def agg_inputs(N: int, K: int, F: int, W: int, seed: int, dev, params=None):
     return x
 
 
-def agg_cost(N: int, K: int, F: int, W: int, params, freqs):
+def agg_cost(N: int, K: int, F: int, W: int, params, freqs, act_bytes: int = 4):
     """(product FLOPs, other FLOPs, bytes) the fused aggregation needs:
-    every input read once, the output written once. With K=1 the softmax
-    weight is 1, so the q and k products and the scores are not needed."""
+    every input read once, the output written once; mv_agg and nb_feat
+    take act_bytes each (2 in the bf16 instantiation), the rest is f32.
+    With K=1 the softmax weight is 1, so the q and k products and the
+    scores are not needed."""
     NF, HD = freqs.numel(), 128
     RD1, RD2 = params["rd_w1"].shape[1], params["rd_w2"].shape[1]
     fin = F + 3 + 6 * NF + RD2
@@ -166,17 +190,19 @@ def agg_cost(N: int, K: int, F: int, W: int, params, freqs):
             + N * ((n_kv - 1) * 2 * W * HD + 2 * HD * W))
     other = (N * K * (2 * (4 * RD1 + RD1 * RD2) + 6 * NF + 3)
              + N * ((2 * 2 * K * HD if K > 1 else 0) + 8 * W))
-    floats = (N * (3 + 4 + W) + N * K * (3 + 4 + F) + 1 + NF
+    floats = (N * (3 + 4) + N * K * (3 + 4) + 1 + NF
               + sum(p.numel() for p in params.values()) + N * W)
-    return prod, other, 4 * floats
+    return prod, other, 4 * floats + act_bytes * (N * W + N * K * F)
 
 
-def agg_bounds(cost):
+def agg_bounds(cost, tc: str = "tf32"):
     """(FP32 bound ms, tensor-core bound ms, what bounds the latter): the
-    larger of the operations over their peak and the bytes over HBM's."""
+    larger of the operations over their peak (the products on the tf32 or
+    bf16 tensor cores) and the bytes over HBM's."""
     prod, other, nbytes = cost
     f32_ms = max((prod + other) / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-    terms = {"operations (tf32 tensor cores)": prod / PEAK_TF32_FLOPS,
+    peak = {"tf32": PEAK_TF32_FLOPS, "bf16": PEAK_BF16_FLOPS}[tc]
+    terms = {f"operations ({tc} tensor cores)": prod / peak,
              "operations (fp32 cores)": other / PEAK_F32_FLOPS,
              "bytes (hbm)": nbytes / PEAK_BYTES_PER_S}
     unit = max(terms, key=terms.get)
@@ -227,6 +253,72 @@ def check_fused_agg(dev):
         if not torch.allclose(a, b, atol=ATOL, rtol=RTOL):
             fail("fused_agg gradient disagrees with the plain version's")
     print("fused_agg gradient (mv_agg, nb_feat, base_mlp fc1) matches reference_agg")
+    return worst
+
+
+def agg_inputs_bf16(x):
+    """The bf16 instantiation's inputs: mv_agg and nb_feat rounded to bf16."""
+    import torch
+    return dict(x, mv_agg=x["mv_agg"].to(torch.bfloat16),
+                nb_feat=x["nb_feat"].to(torch.bfloat16))
+
+
+def rms(t) -> float:
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def check_fused_agg_bf16(dev):
+    """The bf16 instantiation against its plain version (kernel_agg, which
+    rounds where the Pallas kernel at dt=bf16 rounds) at the query shapes
+    (every tile size), a ragged N, K = 3 and 12, and the render shape; and
+    the replayed backward (reference_agg in bf16) against autograd through
+    it. bf16 cannot be held to f32 tolerances: the kernel's distance from
+    the plain version must stay within BF16_TOL times the plain version's
+    own distance from f32 (RMS, and max abs beside it). Returns the largest
+    abs error."""
+    import torch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    worst = 0.0
+    for N, K in ((1024, 8), (1024, 1), (1000, 8), (300, 3), (100, 12), (RENDER_N, RENDER_K)):
+        x = agg_inputs(N, K, 195, 128, seed=N + K, dev=dev)
+        xb = agg_inputs_bf16(x)
+        with torch.no_grad():
+            ref = fa.kernel_agg(**xb)
+            ref32 = fa.reference_agg(**x)
+        yard_rms, yard_max = rms(ref - ref32), float((ref - ref32).abs().max())
+        plans = [0] if N == RENDER_N else [0] + [r for r in fa.TILE_ROWS if r >= K]
+        for rows in plans:
+            out = fa.launch(**xb, rows=rows)
+            torch.cuda.synchronize()
+            e_rms, e_max = rms(out - ref), float((out - ref).abs().max())
+            worst = max(worst, e_max)
+            print(f"fused_agg bf16 N={N} K={K} rows={rows or fa.tile_plan(N, K, fa._sm_count(dev))[0]}: "
+                  f"vs plain rms {e_rms:.3g} max {e_max:.3g}; plain bf16 vs f32 rms "
+                  f"{yard_rms:.3g} max {yard_max:.3g} (tol rms <= {BF16_TOL} x, "
+                  f"max <= {BF16_TOL_MAX} x)")
+            if not (bool(torch.isfinite(out).all()) and e_rms <= BF16_TOL * yard_rms
+                    and e_max <= BF16_TOL_MAX * yard_max):
+                fail(f"fused_agg bf16 disagrees with kernel_agg at N={N} K={K} rows={rows}")
+        del x, xb, ref, ref32
+    x = agg_inputs_bf16(agg_inputs(256, 8, 195, 128, seed=5, dev=dev))
+    grads = []
+    for use_kernel in (True, False):
+        mv = x["mv_agg"].clone().requires_grad_(True)
+        feat = x["nb_feat"].clone().requires_grad_(True)
+        w1 = x["params"]["b_w1"].clone().requires_grad_(True)
+        p = {**x["params"], "b_w1": w1}
+        args = dict(x, mv_agg=mv, nb_feat=feat, params=p)
+        out = (fa._FusedAgg.apply(*[args[k] for k in ("xyz", "direction", "mv_agg",
+                                                      "nb_xyz", "nb_dir", "nb_feat",
+                                                      "scale", "freqs")],
+                                  *[p[k] for k in fa.PARAM_KEYS])
+               if use_kernel else fa.reference_agg(**args, dtype=torch.bfloat16))
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).view_as(out)).sum().backward()
+        grads.append([mv.grad, feat.grad, w1.grad])
+    for a, b in zip(*grads):
+        if not torch.equal(a, b):
+            fail("fused_agg bf16 gradient differs from the replayed reference_agg's")
+    print("fused_agg bf16 gradient (mv_agg, nb_feat, base_mlp fc1) equals reference_agg(bf16)'s")
     return worst
 
 
@@ -994,11 +1086,158 @@ def eval_full_width(dev, card: str):
             "eval_accepted": accepted}
 
 
-def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str):
+def small_paths_bf16_vs_cpu(dev):
+    """The bf16 query and render on CUDA against the same on the CPU (V=3
+    at 32x32, the same weights and noise): each output within the CPU's own
+    bf16-vs-f32 distance (RMS). Both sides round to bf16 at the same points
+    but sum in other orders (cuBLAS, cuDNN, the kernel), which moves values
+    across bf16 rounding boundaries; a path that lost its bf16 rounding or
+    its kernel would be as far off as f32 is."""
+    import torch
+    from nerfloc_tpu_torch.configs import Config, MatchingConfig, RenderConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.solve.pnp import gumbel_noise
+    nb = device_batch(make_query_batch(n_views=3, H=32, W=32, seed=0))
+    cfg = Config(backbone2d_fpn_dim=32, model_3d_hidden_dim=32, matcher_hidden_dim=48,
+                 n_views_test=3, render=RenderConfig(fused_query_agg=True, N_samples=8),
+                 matching=MatchingConfig(fine_num_3d_keypoints=32,
+                                         coarse_num_3d_keypoints=32))
+    runs = {}
+    for d, dt in ((torch.device("cpu"), torch.float32), (torch.device("cpu"), torch.bfloat16),
+                  (dev, torch.bfloat16)):
+        m = NerfPoseEstimator(cfg, device=d, seed=3, dtype=dt)
+        b = to_device_batch(nb, d)
+        g = torch.Generator().manual_seed(11)
+        kp = gumbel_noise((m.n_coarse_points(b),), g, "cpu").to(d)
+        pnp = gumbel_noise((cfg.shapes.pnp_hypotheses, 32), g, "cpu").to(d)
+        with torch.no_grad():
+            q = m.localize_forward(b, kp_gumbel=kp, pnp_gumbel=pnp)
+            r = m.render_image_rays(b, *seeded_rays(b, 64, seed=5))
+        runs[(d.type, dt)] = {**{k: q[k].float().cpu() for k in ("desc_3d", "score_matrix")},
+                              **{k: r[k].float().cpu() for k in ("rgb", "depth", "weights")}}
+    c32, c16 = runs[("cpu", torch.float32)], runs[("cpu", torch.bfloat16)]
+    g16 = runs[("cuda", torch.bfloat16)]
+    for k in c32:
+        yard, err = rms(c16[k] - c32[k]), rms(g16[k] - c16[k])
+        print(f"small bf16 {k}: cuda vs cpu rms {err:.3g} (max {float((g16[k] - c16[k]).abs().max()):.3g}); "
+              f"cpu bf16 vs f32 rms {yard:.3g} (tol: below it)")
+        if not err <= yard:
+            fail(f"small bf16 {k}: CUDA is {err} from the CPU, the CPU's bf16 only {yard} from f32")
+
+
+def bf16_full_width(dev, card: str):
+    """The bf16 main paths at full width: localize_forward (exactly 2 bf16
+    launches and no f32 one per query, the pose a rotation, the median
+    ms/query over 10, peak memory) and render_rays of 4096 rays, dense-64
+    and guided 16+16 (exactly 1 bf16 launch per call, renders finite with
+    rgb in [0, 1], the median ms/call over 10, the kernel's device time
+    inside one dense call). Default Config with render.fused_query_agg=True
+    at its compute dtype (compute_dtype_of: bf16), V=5 at 240x320, seeded
+    weights. Returns the numbers for `kernels`."""
+    import torch
+    from nerfloc_tpu_torch.configs import Config, RenderConfig, compute_dtype_of
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    H, W = 240, 320
+    batch = to_device_batch(device_batch(make_query_batch(n_views=5, H=H, W=W, seed=0)), dev)
+    far = float(batch["far"])
+    res = {}
+    cfg = Config(render=RenderConfig(fused_query_agg=True))
+    dt = compute_dtype_of(cfg)
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        model.localize_forward(batch, generator=gen)
+    torch.cuda.synchronize()
+    fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = 0
+    out = model.localize_forward(batch, generator=gen)
+    torch.cuda.synchronize()
+    n16, n32 = fa.LAUNCHES_BF16.n, fa.LAUNCHES.n
+    print(f"bf16 main path ({dt}): fused_agg launches per query bf16 = {n16}, f32 = {n32}")
+    if n16 != 2 or n32 != 0:
+        fail(f"expected 2 bf16 and 0 f32 fused_agg launches per bf16 query, got {n16} and {n32}")
+    check_pose(out["pose"], "bf16 localize_forward")
+    if out["score_matrix"].dtype != torch.bfloat16 or out["pose"].dtype != torch.float32:
+        fail("bf16 localize_forward output dtypes differ from the JAX package's")
+    print(f"bf16 main path: matches={int(out['match_mask'].sum())} "
+          f"inliers={int(out['num_inliers'])} success={bool(out['pnp_success'])}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.localize_forward(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"bf16 localize_forward V=5 {H}x{W}: median {ms:.2f} ms/query over 10 (min "
+          f"{min(times):.2f}, max {max(times):.2f}); peak memory {peak:.2f} GiB; {card}")
+    res.update(localize_bf16_ms=ms, localize_bf16_peak_gib=peak, launches=n16)
+    del model, out
+    rays = seeded_rays(batch, RENDER_RAYS, seed=0)
+    for kind, render in (("dense", RenderConfig(fused_query_agg=True)),
+                         ("guided", RenderConfig(fused_query_agg=True, N_samples=16,
+                                                 N_importance=16))):
+        model = NerfPoseEstimator(Config(render=render), device=dev, seed=0, dtype=dt)
+        nerf = model.model_3d
+        S = render.N_samples + render.N_importance
+        with torch.no_grad():
+            ctx, _ = model.build_context(batch)
+
+            def call():
+                return nerf.render_rays(ctx, *rays, batch["pose"])
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = 0
+            rout = call()
+            torch.cuda.synchronize()
+            n16, n32 = fa.LAUNCHES_BF16.n, fa.LAUNCHES.n
+            print(f"bf16 render {kind}: fused_agg launches per render_rays call bf16 = {n16}, "
+                  f"f32 = {n32}")
+            if n16 != 1 or n32 != 0:
+                fail(f"expected 1 bf16 fused_agg launch per bf16 render_rays call, "
+                     f"got {n16} (and {n32} f32)")
+            check_render_out(rout, RENDER_RAYS, S, far, f"bf16 render_rays {kind}")
+            times = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(times)
+            print(f"bf16 render_rays {kind} V=5 {H}x{W}, {RENDER_RAYS} rays x {S} samples: "
+                  f"median {ms:.2f} ms/call over 10 (min {min(times):.2f}, max "
+                  f"{max(times):.2f}), {RENDER_RAYS / ms * 1e3:.0f} rays/s; {card}")
+            res[f"render_{kind}_bf16_ms"] = ms
+            if kind == "dense":
+                T = StageTimer()
+                T.wrap(fa, "launch", "fused_agg")
+                try:
+                    call()
+                finally:
+                    T.restore()
+                k_ms, n = T.take()["fused_agg"]
+                print(f"bf16 render dense: fused_agg inside one call {k_ms:.4f} ms over {n} "
+                      f"launch ({100 * k_ms / ms:.1f} % of the call); {card}")
+                res["render_launches_per_call"] = n16
+                res["render_kernel_ms_in_call"] = k_ms
+        del model, nerf, ctx, rout
+        torch.cuda.empty_cache()
+    return res
+
+
+def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
+                   bf16: bool = False):
     """Kernel, plain-version and bound times of the fused aggregation at the
     query shapes (coarse K=8 and fine K=1 launches, N = keypoints; every
     tile size, the default one reported) and at the render shape, with the
-    model's own weights. Returns its `kernels` entry."""
+    model's own weights; for the f32 instantiation (plain version
+    reference_agg, bound at the TF32 tensor-core peak, and at the FP32
+    one beside it) or the bf16 one (kernel_agg, the bf16 peak, mv_agg and
+    the features at 2 bytes). Returns its `kernels` entry."""
     import torch
     from nerfloc_tpu_torch.ops import fused_agg as fa
     C, W = cfg.backbone2d_fpn_dim, cfg.model_3d_hidden_dim
@@ -1007,50 +1246,57 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str):
     n_kp = cfg.matching.fine_num_3d_keypoints
     n_sm = fa._sm_count(dev)
     rd_widths = (params["rd_w1"].shape[1], params["rd_w2"].shape[1])
+    tag, tc, nbytes = ("fused_agg bf16", "bf16", 2) if bf16 else ("fused_agg", "tf32", 4)
+    plain = fa.kernel_agg if bf16 else fa.reference_agg
+
+    def inputs(N, K, seed):
+        x = agg_inputs(N, K, 3 + C, W, seed=seed, dev=dev, params=params)
+        return agg_inputs_bf16(x) if bf16 else x
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_f32_ms": 0.0}
     units = []
     for N, K in ((n_kp, 8), (n_kp, 1)):
-        x = agg_inputs(N, K, 3 + C, W, seed=K, dev=dev, params=params)
+        x = inputs(N, K, seed=K)
         rows_default = fa.tile_plan(N, K, n_sm)[0]
         with torch.no_grad():
             for rows in [r for r in fa.TILE_ROWS if r >= K]:
                 r_ms = device_ms(lambda: fa.launch(**x, rows=rows))
-                print(f"fused_agg N={N} K={K} rows={rows}: kernel {r_ms:.4f} ms"
+                print(f"{tag} N={N} K={K} rows={rows}: kernel {r_ms:.4f} ms"
                       f"{' (default)' if rows == rows_default else ''}; {card}")
             k_ms = device_ms(lambda: fa.launch(**x))
-            pack_ms = device_ms(lambda: fa.pack_agg_weights(params, 3 + C, x["freqs"].numel()))
-            p_ms = device_ms(lambda: fa.reference_agg(**x))
-        prod, other, nbytes = cost = agg_cost(N, K, 3 + C, W, params, x["freqs"])
-        f32_ms, b_ms, unit = agg_bounds(cost)
+            pack_ms = device_ms(lambda: fa.pack_agg_weights(
+                params, 3 + C, x["freqs"].numel(), dtype=x["mv_agg"].dtype))
+            p_ms = device_ms(lambda: plain(**x))
+        prod, other, nbytes_ = cost = agg_cost(N, K, 3 + C, W, params, x["freqs"], nbytes)
+        f32_ms, b_ms, unit = agg_bounds(cost, tc)
         smem, stages = fa.smem_plan(rows_default, rows_default // K, K, 3 + C,
-                                    x["freqs"].numel(), *rd_widths)
+                                    x["freqs"].numel(), *rd_widths, bf16=bf16)
         if k_ms < b_ms:
-            fail(f"fused_agg N={N} K={K} reads faster than its bound ({k_ms} < {b_ms} ms)")
+            fail(f"{tag} N={N} K={K} reads faster than its bound ({k_ms} < {b_ms} ms)")
         tot["ms"] += k_ms
         tot["plain_ms"] += p_ms
         tot["bound_ms"] += b_ms
         tot["bound_f32_ms"] += f32_ms
         units.append((b_ms, f"K={K}: {unit}"))
-        print(f"fused_agg N={N} K={K}: {rows_default}-row tiles ({smem} B shared memory, "
+        print(f"{tag} N={N} K={K}: {rows_default}-row tiles ({smem} B shared memory, "
               f"{stages} ring stages); kernel {k_ms:.4f} ms (of which weight packing "
               f"{pack_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} "
               f"({100 * b_ms / k_ms:.1f} %), FP32 bound {f32_ms:.4f} ms "
               f"({prod / 1e9:.3f} GFLOP products, {other / 1e9:.3f} GFLOP other, "
-              f"{nbytes / 1e6:.2f} MB); {card}")
+              f"{nbytes_ / 1e6:.2f} MB); {card}")
     # render shape: N = 4096 rays x 64 samples, K = 8
-    x = agg_inputs(RENDER_N, RENDER_K, 3 + C, W, seed=3, dev=dev, params=params)
+    x = inputs(RENDER_N, RENDER_K, seed=3)
     with torch.no_grad():
         r_ms = device_ms(lambda: fa.launch(**x), iters=5)
         r32_ms = device_ms(lambda: fa.launch(**x, rows=32), iters=5)
-        rp_ms = device_ms(lambda: fa.reference_agg(**x), iters=3)
-    cost = agg_cost(RENDER_N, RENDER_K, 3 + C, W, params, x["freqs"])
-    rf32_ms, rb_ms, r_unit = agg_bounds(cost)
+        rp_ms = device_ms(lambda: plain(**x), iters=3)
+    cost = agg_cost(RENDER_N, RENDER_K, 3 + C, W, params, x["freqs"], nbytes)
+    rf32_ms, rb_ms, r_unit = agg_bounds(cost, tc)
     r_rows = fa.tile_plan(RENDER_N, RENDER_K, n_sm)[0]
     r_smem, r_stages = fa.smem_plan(r_rows, r_rows // RENDER_K, RENDER_K, 3 + C,
-                                    x["freqs"].numel(), *rd_widths)
+                                    x["freqs"].numel(), *rd_widths, bf16=bf16)
     if r_ms < rb_ms:
-        fail(f"fused_agg at the render shape reads faster than its bound ({r_ms} < {rb_ms} ms)")
-    print(f"fused_agg render N={RENDER_N} K={RENDER_K}: kernel {r_ms:.4f} ms "
+        fail(f"{tag} at the render shape reads faster than its bound ({r_ms} < {rb_ms} ms)")
+    print(f"{tag} render N={RENDER_N} K={RENDER_K}: kernel {r_ms:.4f} ms "
           f"({r_rows}-row tiles, {r_smem} B shared memory, {r_stages} ring stages; "
           f"32-row tiles: {r32_ms:.4f} ms), "
           f"plain {rp_ms:.4f} ms, bound {rb_ms:.4f} ms by {r_unit} "
@@ -1061,7 +1307,7 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str):
     print("times per query: ms/plain_ms/bound_ms sum the coarse (K=8) and fine "
           "(K=1) launches; render_* are one launch at the render shape")
     return {
-        "name": "fused_agg", "route": "cuda",
+        "name": "fused_agg_bf16" if bf16 else "fused_agg", "route": "cuda",
         "source": "nerfloc_tpu_torch/csrc/fused_agg.cu",
         "replaces": "nerfloc_tpu/ops/fused_agg.py:279",
         "launches": launches, "max_abs_err": max_err,
@@ -1096,6 +1342,8 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum in f32, as XLA sums the JAX package's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
@@ -1108,6 +1356,7 @@ def main() -> int:
             print(f"build report: {line.strip()}")
 
     max_err = check_fused_agg(dev)
+    max_err_bf16 = check_fused_agg_bf16(dev)
     small_query_vs_cpu(dev)
 
     # main path at full width
@@ -1155,6 +1404,8 @@ def main() -> int:
     refine_err, refine_agg = check_fused_agg_refine_shape(dev, card)
     max_err = max(max_err, refine_err)
     evals = eval_full_width(dev, card)
+    small_paths_bf16_vs_cpu(dev)
+    bf16 = bf16_full_width(dev, card)
 
     kernels = [{**time_fused_agg(model, cfg, dev, launches, max_err, card),
                 "render_launches_per_call": render["render_launches_per_call"],
@@ -1162,7 +1413,11 @@ def main() -> int:
                 "train_launches_per_step": train["train_launches_per_step"], **train_agg,
                 "eval_launches_per_query": evals["eval_launches_per_query"],
                 "refine_launches_per_query": evals["refine_launches_per_query"],
-                **refine_agg}]
+                **refine_agg},
+               {**time_fused_agg(model, cfg, dev, bf16["launches"], max_err_bf16, card,
+                                 bf16=True),
+                "render_launches_per_call": bf16["render_launches_per_call"],
+                "render_kernel_ms_in_call": bf16["render_kernel_ms_in_call"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

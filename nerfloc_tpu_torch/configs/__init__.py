@@ -8,6 +8,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Tuple
 
+import torch
+
 
 @dataclass(frozen=True)
 class RenderConfig:
@@ -143,3 +145,9 @@ class Config:
                 f"matcher_hidden_dim={self.matcher_hidden_dim} must be "
                 "divisible by 6 (3D positional embedding packs "
                 "sin+cos x 3 axes per band)")
+
+
+def compute_dtype_of(cfg: Config) -> torch.dtype:
+    """cfg.compute_dtype as a torch dtype: the model's compute dtype, as the
+    JAX package's CLIs and bench build it (parameters stay f32)."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.compute_dtype]

@@ -60,9 +60,41 @@
 //   cores compute the row geometry and embedding into a second region;
 //   fc0 reads its first ceil(F/8) k-steps from the one, the rest from the
 //   other.
+//
+// The bf16 instantiation (E = __nv_bfloat16) is the Pallas kernel at
+// dt=bfloat16, which rounds to bf16 at every matrix product, bias add,
+// activation and softmax weight, and keeps the offsets, phases, softmax
+// sums and LayerNorm in f32. Here:
+// - nb_feat and mv_agg arrive in bf16 and the tile's activations stay
+//   bf16 in shared memory (half the device and shared-memory bytes of a
+//   row); the weights stream through the same 8 KB ring stages, rounded to
+//   bf16 by the wrapper (round to nearest even, as astype), two k-steps of
+//   16 a stage.
+// - Every product is one bf16 MMA accumulated in f32 (where 3xTF32 spends
+//   three): wgmma m64n128k16 for 64-row tiles (the ring then holds each
+//   k-step's [16, 128] tile in the f32 wgmma layout's core matrices, 8 n-rows
+//   of 16 bytes, two k-halves 2 KB apart), mma.sync m16n8k16 otherwise.
+// - The CUDA-core phases round where the Pallas kernel does: products to
+//   bf16, then the bias added in bf16, leaky ReLU as max(x, bf16(0.01) x)
+//   in bf16, the ray-diff MLP from bf16 inputs and weights with f32 sums,
+//   q scaled by bf16(1/sqrt(32)), each q.k product rounded before the f32
+//   per-head sum, each softmax weight exp(s - max) and 1/sum rounded
+//   before they meet v, the attention output rounded; o + mv and the
+//   LayerNorm in f32 (XLA computes the Pallas kernel's bf16 sum, cast to
+//   f32 at once, in f32). The offsets keep an f32 copy for the phases.
+// - fc0 mirrors the Pallas kernel's five block products [feat | off | sin
+//   | cos | rdfc]: each block starts on a whole k-step of 16 (zero columns
+//   and weight rows between), its product is rounded to bf16 and added to
+//   the running bf16 sum, as the plain version (ops/fused_agg.py:
+//   kernel_agg) does. At the main width (F=195, 10 bands) this costs no
+//   k-step (20 either way). One product rounded once instead was measured
+//   0.65x as far from the plain version as bf16 is from f32 (RMS, N=1024,
+//   K=8); with the blocks only the f32 sum order differs.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -92,6 +124,41 @@ constexpr float kLeak = 0.01f;
 constexpr float kLnEps = 1e-6f;
 constexpr long long kSpinLimit = 1LL << 34;  // ~10 s of cycles: a stuck wait traps
 
+using bf16 = __nv_bfloat16;
+// bf16 instantiation: [rows, 128] tiles at a row stride of 136 (68 words,
+// 4 mod 8: conflict-free A fragments); MMA depth 16; one k-step's [16, 128]
+// weight tile is 4 KB, two to a ring stage.
+constexpr int kLdhB = kHd + 8;
+constexpr int kKStepB = 16;
+constexpr int kTileBytesB = kKStepB * kHd * 2;
+constexpr float kLeakB = 0.010009765625f;    // bf16(0.01), as the Pallas kernel multiplies
+
+// per element type: MMA depth, row stride of [rows, 128] tiles, and the
+// padding of the embedding's row stride (4 mod 8 words either way)
+template <typename E>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int kDep = kKStep, kLd = kLdh, kLdePad = 4;
+};
+template <>
+struct Elem<bf16> {
+  static constexpr int kDep = kKStepB, kLd = kLdhB, kLdePad = 8;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename E>
+__device__ __forceinline__ E from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+// x rounded to E (round to nearest even), as f32
+template <typename E>
+__device__ __forceinline__ float rnd(float x) { return to_f(from_f<E>(x)); }
+__device__ __forceinline__ float leaky_b(float x) { return fmaxf(x, rnd<bf16>(x * kLeakB)); }
+
 // Products in the order the ring streams them (and the packed buffer holds
 // them): fc0 [8 ks0p, 128], then six [128, 128].
 enum { kFc0, kFc1, kFc2, kWv, kWk, kWq, kWfc, kProducts };
@@ -99,20 +166,20 @@ enum { kFc0, kFc1, kFc2, kWv, kWk, kWq, kWfc, kProducts };
 struct Args {
   const float* xyz;      // [N, 3]
   const float* dir;      // [N, dir_stride], first 3 used
-  const float* mv;       // [N, W]
+  const void* mv;        // [N, W] of E
   const float* nb_xyz;   // [N, K, 3]
   const float* nb_dir;   // [N, K, 4]
-  const float* nb_feat;  // [N, K, F]
+  const void* nb_feat;   // [N, K, F] of E
   const float* scale;    // [1]
   const float* freqs;    // [NF]
   const float* rd_w1; const float* rd_b1;  // [4, RD1], [RD1]
   const float* rd_w2; const float* rd_b2;  // [RD1, RD2], [RD2]
-  const float* wpack;                      // packed products (ops/fused_agg.py)
+  const void* wpack;                       // packed products of E (ops/fused_agg.py)
   const float* b0; const float* b1; const float* b2;  // [W]
   const float* ln_s; const float* ln_b;    // [W]
   float* out;                              // [N, W]
   int N, K, F, W, NF, RD1, RD2, T, dir_stride;
-  int ks_f, ks_e, ks0p, lde, feat_floats, region, q_rows, nst, rdw_floats;
+  int ks_f, ks_e, ks0p, lde, feat_elems, region, q_rows, nst, rdw_floats, off_floats;
   float q_scale;
 };
 
@@ -176,7 +243,7 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
@@ -239,15 +306,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // The A operand of a product: k-steps [0, nks1) from x1 (row stride ld1,
 // columns >= kv1 read as 0), the rest from x2 (stride ld2); nks_c k-steps
 // are computed, the ring may hold more (zero padding).
+template <typename E>
 struct Operand {
-  const float* x1;
+  const E* x1;
   int ld1, kv1, nks1;
-  const float* x2;
+  const E* x2;
   int ld2, nks_c;
+  int blk_end[3];   // bf16 fc0: k-steps ending the off, sin and cos blocks
 };
 
-__device__ __forceinline__ Operand tile_operand(const float* x, int ld) {
-  return Operand{x, ld, 1 << 30, 1 << 30, nullptr, 0, kHd / kKStep};
+template <typename E>
+__device__ __forceinline__ Operand<E> tile_operand(const E* x, int ld) {
+  return Operand<E>{x, ld, 1 << 30, 1 << 30, nullptr, 0, kHd / Elem<E>::kDep, {0, 0, 0}};
 }
 
 // acc[mt][j] = X[16 mt .. +16, :] @ Wkn[:, 32 wn + 8 j .. +8] for
@@ -258,7 +328,7 @@ __device__ __forceinline__ Operand tile_operand(const float* x, int ld) {
 // it for every product, also with mt_n = 0, so that each stage is released
 // by all of them.
 template <int MT, bool kFull, bool kTwo, bool kPre>
-__device__ __forceinline__ void gemm(float (&acc)[MT][4][4], const Operand& x, int mt_n,
+__device__ __forceinline__ void gemm(float (&acc)[MT][4][4], const Operand<float>& x, int mt_n,
                                      int nks, Ring& ring, int wn, int lane) {
   constexpr int kSteps = kPre ? 1 : kStageK;
   const int g = lane >> 2;
@@ -325,7 +395,7 @@ __device__ __forceinline__ void gemm(float (&acc)[MT][4][4], const Operand& x, i
 
 // ---- wgmma for 64-row tiles ----------------------------------------------
 
-__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+__device__ __forceinline__ uint64_t b_desc(const void* tile) {
   return ((smem_u32(tile) & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(kLbo >> 4) << 16) |
          (static_cast<uint64_t>(kSbo >> 4) << 32);
 }
@@ -359,7 +429,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
 // fragment layout), split big/small; each stage's big and small B tiles
 // come from the ring. Three wgmma per k-step, small terms first.
 template <bool kTwo>
-__device__ __forceinline__ void gemm_wg(float (&d)[64], const Operand& x, int nks, Ring& ring,
+__device__ __forceinline__ void gemm_wg(float (&d)[64], const Operand<float>& x, int nks, Ring& ring,
                                         int warp, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -455,21 +525,329 @@ __device__ __forceinline__ void store(const float (&acc)[MT][4][4], float* Y, in
   }
 }
 
+// ---- bf16 tensor-core products (the bf16 instantiation) ---------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two consecutive bf16 (columns c, c + 1 of a row) as one A register, the
+// lower column in the low half
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the same where the row stride may be odd (the features) and columns
+// >= kv read as 0
+__device__ __forceinline__ uint32_t ld_pair_masked(const bf16* p, int c, int kv) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  const uint32_t lo = c < kv ? q[0] : 0u;
+  const uint32_t hi = c + 1 < kv ? q[1] : 0u;
+  return lo | (hi << 16);
+}
+
+// Ends the current block of fc0: tot = bf16(tot + bf16(acc)) (tot =
+// bf16(acc) for the first block), acc = 0. tot holds bf16 pairs.
+template <int MT>
+__device__ __forceinline__ void fold_block(float (&acc)[MT][4][4], uint32_t (&tot)[MT][4][2],
+                                           bool first) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a0 = rnd<bf16>(acc[mt][j][2 * h]), a1 = rnd<bf16>(acc[mt][j][2 * h + 1]);
+        if (!first) {
+          const float2 tf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[mt][j][h]));
+          a0 = tf.x + a0;
+          a1 = tf.y + a1;
+        }
+        const __nv_bfloat162 r = __floats2bfloat162_rn(a0, a1);
+        tot[mt][j][h] = *reinterpret_cast<const uint32_t*>(&r);
+        acc[mt][j][2 * h] = 0.f;
+        acc[mt][j][2 * h + 1] = 0.f;
+      }
+}
+
+// gemm() for bf16 operands: one mma.sync m16n8k16 per n-tile and k-step.
+// Warp wn's lane (g, t) = (lane / 4, lane % 4) reads the B fragments of its
+// n-tiles j = 2 h + jl (b0: k = 2t, 2t + 1; b1: k = 2t + 8, 2t + 9; n =
+// 32 wn + 8 j + g) as the 16 bytes at (wn, h) of each 4 KB k-step tile.
+// kTwo (fc0): the product is the bf16 sum of the products of its blocks
+// [feat | off | sin | cos | rdfc], each rounded to bf16, as the Pallas
+// kernel sums them (the blocks are padded to whole k-steps); acc returns it.
+template <int MT, bool kFull, bool kTwo, bool kPre = false>
+__device__ __forceinline__ void gemm_bf(float (&acc)[MT][4][4], const Operand<bf16>& x, int mt_n,
+                                        int nks, Ring& ring, int wn, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  uint32_t tot[kTwo ? MT : 1][4][2];
+  int blk = 0;   // blocks folded so far
+  for (int s = 0; s < nks; s += kStageK) {
+    const unsigned char* ws = reinterpret_cast<const unsigned char*>(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < kStageK; ++kk) {
+      const int ks = s + kk;
+      if (kTwo && ks >= x.nks_c) continue;
+      uint32_t bw[8];
+      if constexpr (kPre) {
+        // the ring holds wgmma's core-matrix layout (64-row tiles): b0 of
+        // n-tile j at (k-half 0, n-group 4 wn + j), row g, columns 2t, 2t+1
+        const uint32_t* wsw = reinterpret_cast<const uint32_t*>(ws + kk * kTileBytesB);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ng = 4 * wn + j;
+          bw[2 * j] = wsw[ng * 32 + 4 * g + t];
+          bw[2 * j + 1] = wsw[512 + ng * 32 + 4 * g + t];
+        }
+      } else {
+        const uint4* bp = reinterpret_cast<const uint4*>(ws + kk * kTileBytesB +
+                                                         wn * (kTileBytesB / kCons)) + lane;
+        const uint4 p0 = bp[0];
+        const uint4 p1 = bp[32];
+        bw[0] = p0.x; bw[1] = p0.y; bw[2] = p0.z; bw[3] = p0.w;
+        bw[4] = p1.x; bw[5] = p1.y; bw[6] = p1.z; bw[7] = p1.w;
+      }
+      const bool first = !kTwo || ks < x.nks1;
+      const bf16* base = first ? x.x1 + ks * kKStepB : x.x2 + (ks - x.nks1) * kKStepB;
+      const int ld = first ? x.ld1 : x.ld2;
+      const int kv = x.kv1 - ks * kKStepB;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (kFull || mt < mt_n) {
+          const bf16* xr = base + (16 * mt + g) * ld + 2 * t;
+          uint32_t a[4];
+          if (kTwo && first) {
+            a[0] = ld_pair_masked(xr, 2 * t, kv);
+            a[1] = ld_pair_masked(xr + 8 * ld, 2 * t, kv);
+            a[2] = ld_pair_masked(xr + 8, 2 * t + 8, kv);
+            a[3] = ld_pair_masked(xr + 8 * ld + 8, 2 * t + 8, kv);
+          } else {
+            a[0] = ld_pair(xr);
+            a[1] = ld_pair(xr + 8 * ld);
+            a[2] = ld_pair(xr + 8);
+            a[3] = ld_pair(xr + 8 * ld + 8);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, bw[2 * j], bw[2 * j + 1]);
+        }
+      }
+      if constexpr (kTwo) {
+        const int end = blk == 0 ? x.nks1 : blk < 4 ? x.blk_end[blk - 1] : x.nks_c;
+        if (ks + 1 == end) {
+          fold_block<MT>(acc, tot, blk == 0);
+          ++blk;
+        }
+      }
+    }
+    ring.release(lane);
+  }
+  if constexpr (kTwo) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 tf =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[mt][j][h]));
+          acc[mt][j][2 * h] = tf.x;
+          acc[mt][j][2 * h + 1] = tf.y;
+        }
+  }
+}
+
+// store() for bf16 tiles, rounding as the Pallas kernel's mm() and its
+// callers do: the product to bf16, + bf16(bias) in bf16, * post in bf16
+// (post is a bf16 value), then leaky ReLU in bf16.
+template <int MT>
+__device__ __forceinline__ void store_bf(const float (&acc)[MT][4][4], bf16* Y, int mt_n,
+                                         const float* __restrict__ bias, int nb, bool act,
+                                         float post, int wn, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt >= mt_n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn * 32 + j * 8 + 2 * t;
+      float bx = 0.f, by = 0.f;
+      if (bias != nullptr) {
+        if (c < nb) bx = rnd<bf16>(__ldg(bias + c));
+        if (c + 1 < nb) by = rnd<bf16>(__ldg(bias + c + 1));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float vx = rnd<bf16>(acc[mt][j][2 * h]);
+        float vy = rnd<bf16>(acc[mt][j][2 * h + 1]);
+        vx = rnd<bf16>(rnd<bf16>(vx + bx) * post);
+        vy = rnd<bf16>(rnd<bf16>(vy + by) * post);
+        if (act) {
+          vx = leaky_b(vx);
+          vy = leaky_b(vy);
+        }
+        const int r = 16 * mt + g + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(Y + r * kLdhB + c) = __floats2bfloat162_rn(vx, vy);
+      }
+    }
+  }
+}
+
+// d[64x128] += a[64x16] (registers, bf16) @ B[16x128] (shared, bf16, K-major)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// gemm_wg for bf16: d = X[64, :] @ Wkn[:, 128], warp w holding rows 16w..
+// of A in registers (the m16n8k16 fragment layout), one wgmma m64n128k16 per
+// k-step against the stage's core-matrix tile (the f32 layout's strides at
+// 2-byte elements). kTwo (fc0): the product is the bf16 sum of its blocks'
+// products, each rounded, as in gemm_bf.
+template <bool kTwo>
+__device__ __forceinline__ void gemm_wg_bf(float (&d)[64], const Operand<bf16>& x, int nks,
+                                           Ring& ring, int warp, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  uint32_t tot[kTwo ? 32 : 1];
+  int blk = 0;
+  for (int s = 0; s < nks; s += kStageK) {
+    const unsigned char* ws = reinterpret_cast<const unsigned char*>(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < kStageK; ++kk) {
+      const int ks = s + kk;
+      if (kTwo && ks >= x.nks_c) continue;   // the same for the whole warpgroup
+      const bool first = !kTwo || ks < x.nks1;
+      const bf16* base = first ? x.x1 + ks * kKStepB : x.x2 + (ks - x.nks1) * kKStepB;
+      const int ld = first ? x.ld1 : x.ld2;
+      const int kv = x.kv1 - ks * kKStepB;
+      const bf16* xr = base + (16 * warp + g) * ld + 2 * t;
+      uint32_t a[4];
+      if (kTwo && first) {
+        a[0] = ld_pair_masked(xr, 2 * t, kv);
+        a[1] = ld_pair_masked(xr + 8 * ld, 2 * t, kv);
+        a[2] = ld_pair_masked(xr + 8, 2 * t + 8, kv);
+        a[3] = ld_pair_masked(xr + 8 * ld + 8, 2 * t + 8, kv);
+      } else {
+        a[0] = ld_pair(xr);
+        a[1] = ld_pair(xr + 8 * ld);
+        a[2] = ld_pair(xr + 8);
+        a[3] = ld_pair(xr + 8 * ld + 8);
+      }
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      wgmma_bf16(d, a, b_desc(ws + kk * kTileBytesB));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      if constexpr (kTwo) {
+        const int end = blk == 0 ? x.nks1 : blk < 4 ? x.blk_end[blk - 1] : x.nks_c;
+        if (ks + 1 == end) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            float a0 = rnd<bf16>(d[2 * i]), a1 = rnd<bf16>(d[2 * i + 1]);
+            if (blk > 0) {
+              const float2 tf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[i]));
+              a0 = tf.x + a0;
+              a1 = tf.y + a1;
+            }
+            const __nv_bfloat162 r = __floats2bfloat162_rn(a0, a1);
+            tot[i] = *reinterpret_cast<const uint32_t*>(&r);
+            d[2 * i] = 0.f;
+            d[2 * i + 1] = 0.f;
+          }
+          ++blk;
+        }
+      }
+    }
+    ring.release(lane);
+  }
+  if constexpr (kTwo) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float2 tf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[i]));
+      d[2 * i] = tf.x;
+      d[2 * i + 1] = tf.y;
+    }
+  }
+}
+
+// store_bf for gemm_wg_bf's accumulators: warp w's rows 16w + g (+8), n-tile
+// j at d[4j .. 4j + 3], as store_wg lays them out.
+__device__ __forceinline__ void store_wg_bf(const float (&d)[64], bf16* Y,
+                                            const float* __restrict__ bias, int nb, bool act,
+                                            int warp, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = j * 8 + 2 * t;
+    float bx = 0.f, by = 0.f;
+    if (bias != nullptr) {
+      if (c < nb) bx = rnd<bf16>(__ldg(bias + c));
+      if (c + 1 < nb) by = rnd<bf16>(__ldg(bias + c + 1));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float vx = rnd<bf16>(rnd<bf16>(d[4 * j + 2 * h]) + bx);
+      float vy = rnd<bf16>(rnd<bf16>(d[4 * j + 2 * h + 1]) + by);
+      if (act) {
+        vx = leaky_b(vx);
+        vy = leaky_b(vy);
+      }
+      const int r = 16 * warp + g + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(Y + r * kLdhB + c) = __floats2bfloat162_rn(vx, vy);
+    }
+  }
+}
+
 // Residual + LayerNorm over the first W (<= 128) columns, one warp per
-// sample, the row held in registers (4 values a lane).
-__device__ __forceinline__ void layer_norm(const Args& a, const float* Y, int ldy,
-                                           const float* R, int ldr, int n0, int t_valid, int warp,
-                                           int nwarps, int lane) {
+// sample, the row held in registers (4 values a lane); the residual sum and
+// the statistics are f32.
+template <typename E>
+__device__ __forceinline__ void layer_norm(const Args& a, const E* Y, int ldy, const E* R,
+                                           int ldr, int n0, int t_valid, int warp, int nwarps,
+                                           int lane) {
   const int W = a.W;
   for (int t = warp; t < t_valid; t += nwarps) {
-    const float* y = Y + t * ldy;
-    const float* res = R + static_cast<size_t>(t) * ldr;
+    const E* y = Y + t * ldy;
+    const E* res = R + static_cast<size_t>(t) * ldr;
     float v[kHd / 32];
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kHd / 32; ++i) {
       const int c = lane + 32 * i;
-      v[i] = c < W ? y[c] + res[c] : 0.f;
+      v[i] = c < W ? to_f(y[c]) + to_f(res[c]) : 0.f;
       s += v[i];
     }
     const float mean = warp_sum(s) / W;
@@ -492,23 +870,43 @@ __device__ __forceinline__ void layer_norm(const Args& a, const float* Y, int ld
 // Lq=1 attention over the K neighbours: one warp per (sample, head), lane =
 // dimension; the scores of 8 keys at a time are reduced together (online
 // softmax across groups of 8, the max subtracted). o overwrites q in place
-// (each lane reads its q before writing its o).
-__device__ __forceinline__ void attention(float* Q, const float* Kt, const float* Vt, int ldx,
-                                          int K, int t_valid, int warp, int nwarps, int lane) {
+// (each lane reads its q before writing its o). In bf16 each q.k product
+// and each weight exp(s - max) is rounded to bf16 before it is used, and
+// o = bf16(sum * bf16(1 / den)); the sums stay f32. Rounded weights must
+// be taken against the max of all K scores (as the Pallas kernel does), so
+// with K > 8 the bf16 instantiation finds that max in a first pass.
+template <typename E>
+__device__ __forceinline__ void group_scores(float (&sc)[8], float qd, const E* Kt, int ldx, int K,
+                                             int t, int k0, int col) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    sc[j] = k0 + j < K ? rnd<E>(qd * to_f(Kt[(t * K + k0 + j) * ldx + col])) : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], off);
+}
+
+template <typename E>
+__device__ __forceinline__ void attention(E* Q, const E* Kt, const E* Vt, int ldx, int K,
+                                          int t_valid, int warp, int nwarps, int lane) {
   for (int task = warp; task < t_valid * kHeads; task += nwarps) {
     const int t = task / kHeads;
     const int col = (task - t * kHeads) * kDk + lane;
-    const float qd = Q[t * kLdh + col];
+    const float qd = to_f(Q[t * ldx + col]);
     float m = -3.402823466e38f, den = 0.f, o = 0.f;
+    if (std::is_same<E, bf16>::value && K > 8) {
+      for (int k0 = 0; k0 < K; k0 += 8) {
+        float sc[8];
+        group_scores<E>(sc, qd, Kt, ldx, K, t, k0, col);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (k0 + j < K) m = fmaxf(m, sc[j]);
+      }
+    }
     for (int k0 = 0; k0 < K; k0 += 8) {
       float sc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sc[j] = k0 + j < K ? qd * Kt[(t * K + k0 + j) * ldx + col] : 0.f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], off);
+      group_scores<E>(sc, qd, Kt, ldx, K, t, k0, col);
       float mc = m;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -521,23 +919,37 @@ __device__ __forceinline__ void attention(float* Q, const float* Kt, const float
         if (k0 + j < K) {
           const float e = expf(sc[j] - mc);
           den += e;
-          o = fmaf(e, Vt[(t * K + k0 + j) * ldx + col], o);
+          o = fmaf(rnd<E>(e), to_f(Vt[(t * K + k0 + j) * ldx + col]), o);
         }
       }
       m = mc;
     }
-    Q[t * kLdh + col] = o / den;
+    if constexpr (std::is_same<E, bf16>::value)
+      Q[t * ldx + col] = from_f<bf16>(o * rnd<bf16>(1.f / den));
+    else
+      Q[t * ldx + col] = o / den;
   }
 }
 
 // One 64/32/16-row product of the chain, Y = act(X @ Wkn + bias): wgmma
-// for 64-row tiles, mma.sync otherwise. in_place: Y overwrites the
-// operand's region, so every warp must have read it first.
-template <int MT, bool kTwo>
-__device__ __forceinline__ void product(const Operand& x, int nks, Ring& ring, float* Y,
+// for 64-row tiles and mma.sync otherwise, in either element type.
+// in_place: Y overwrites the operand's region, so every warp must have
+// read it first.
+template <int MT, bool kTwo, typename E>
+__device__ __forceinline__ void product(const Operand<E>& x, int nks, Ring& ring, E* Y,
                                         const float* bias, int nb, bool act, bool in_place,
                                         int warp, int lane) {
-  if constexpr (MT == 4) {
+  if constexpr (std::is_same<E, bf16>::value && MT == 4) {
+    float d[64];
+    gemm_wg_bf<kTwo>(d, x, nks, ring, warp, lane);
+    if (in_place) bar_consumers(kConsThreads);
+    store_wg_bf(d, Y, bias, nb, act, warp, lane);
+  } else if constexpr (std::is_same<E, bf16>::value) {
+    float acc[MT][4][4];
+    gemm_bf<MT, true, kTwo>(acc, x, MT, nks, ring, warp, lane);
+    if (in_place) bar_consumers(kConsThreads);
+    store_bf<MT>(acc, Y, MT, bias, nb, act, 1.f, warp, lane);
+  } else if constexpr (MT == 4) {
     float d[64];
     gemm_wg<kTwo>(d, x, nks, ring, warp, lane);
     if (in_place) bar_consumers(kConsThreads);
@@ -551,14 +963,14 @@ __device__ __forceinline__ void product(const Operand& x, int nks, Ring& ring, f
 }
 
 // Producer: one lane streams every stage the consumers will read, in order
-// (kSteps k-steps a stage).
-template <int kSteps>
+// (kSteps k-steps of depth kDep a stage).
+template <int kSteps, int kDep>
 __device__ void produce(const Args& a, float* ring_buf, uint64_t* full, uint64_t* empty) {
   int slot = 0;
   uint32_t phase = 0;
-  const float* src = a.wpack;
+  const float* src = static_cast<const float*>(a.wpack);
   for (int p = 0; p < kProducts; ++p) {
-    const int nstage = (p == kFc0 ? a.ks0p : kHd / kKStep) / kSteps;
+    const int nstage = (p == kFc0 ? a.ks0p : kHd / kDep) / kSteps;
     if (a.K == 1 && (p == kWk || p == kWq)) {  // no scores with one neighbour
       src += nstage * kStageFloats;
       continue;
@@ -576,21 +988,26 @@ __device__ void produce(const Args& a, float* ring_buf, uint64_t* full, uint64_t
   }
 }
 
-template <int MT>
+template <int MT, typename E>
 __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Args a) {
+  constexpr bool kBf = std::is_same<E, bf16>::value;
   constexpr int kRows = 16 * MT;           // rows (= T*K, padded) of one CTA
   constexpr bool kWgmma = MT == 4;          // 64-row tiles: wgmma products
+  constexpr int kDep = Elem<E>::kDep;       // MMA depth
+  constexpr int kLd = Elem<E>::kLd;         // row stride of the [rows, 128] tiles
+  constexpr int kVec = 16 / static_cast<int>(sizeof(E));  // elements of 16 bytes
   extern __shared__ __align__(128) float smem[];
   const int K = a.K, F = a.F, W = a.W, T = a.T, NF = a.NF, lde = a.lde;
   const int RD1 = a.RD1, RD2 = a.RD2;
 
-  float* ring_buf = smem;                         // [nst, kStageFloats]
-  float* FEAT = ring_buf + a.nst * kStageFloats;  // [kRows, F] + pad; later A | B
-  float* EMB = FEAT + a.feat_floats;              // [kRows, lde]
-  float* MV = FEAT + a.region;                    // [q_rows, kLdh] (K > 1)
-  float* Q = MV + a.q_rows * kLdh;                // [q_rows, kLdh] (K > 1)
-  float* RDW = Q + a.q_rows * kLdh;               // ray-diff MLP weights
-  uint64_t* full = reinterpret_cast<uint64_t*>(RDW + a.rdw_floats);
+  float* ring_buf = smem;                                             // [nst, 8 KB]
+  E* FEAT = reinterpret_cast<E*>(ring_buf + a.nst * kStageFloats);   // [kRows, F] + pad; later A | B
+  E* EMB = FEAT + a.feat_elems;                                       // [kRows, lde]
+  E* MV = FEAT + a.region;                                            // [q_rows, kLd] (K > 1)
+  E* Q = MV + a.q_rows * kLd;                                         // [q_rows, kLd] (K > 1)
+  float* RDW = reinterpret_cast<float*>(Q + a.q_rows * kLd);          // ray-diff MLP weights
+  float* OFF = RDW + a.rdw_floats;                                    // [kRows, 4] f32 offsets (bf16)
+  uint64_t* full = reinterpret_cast<uint64_t*>(OFF + a.off_floats);
   uint64_t* empty = full + kMaxStages;
   uint64_t* feat_bar = empty + kMaxStages;
 
@@ -607,40 +1024,46 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   }
   __syncthreads();
   if (warp == kCons) {
-    if (lane == 0) produce<kWgmma ? 1 : kStageK>(a, ring_buf, full, empty);
+    if (lane == 0) produce<(kWgmma && !kBf) ? 1 : kStageK, kDep>(a, ring_buf, full, empty);
     return;
   }
 
   const int n0 = blockIdx.x * T;
   const int t_valid = min(T, a.N - n0);
   const int rows_valid = t_valid * K;
-  const int off_col = 0;  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0]
-  const int sin_col = 3;
-  const int cos_col = 3 + 3 * NF;
-  const int rd_col = 3 + 6 * NF;
+  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0]; in bf16 each
+  // block starts on a whole k-step (zeros between), for fc0's block sums
+  const int off_col = 0;
+  const int sin_col = kBf ? kKStepB : 3;
+  const int trig = kBf ? (3 * NF + kKStepB - 1) / kKStepB * kKStepB : 3 * NF;
+  const int cos_col = sin_col + trig;
+  const int rd_col = cos_col + trig;
   const int emb_end = rd_col + RD2;
+  const E* mv = static_cast<const E*>(a.mv);
 
   // 1. neighbour features: the 16-byte-aligned body of the tile's block in
-  //    one bulk copy, the <= 3 floats at either end by hand; zeros after the
-  //    valid rows (fc0 reads up to 8 ceil(F/8) columns of the last row). The
-  //    rows start at FX, shifted so that source and copy align alike.
-  const float* feat = a.nb_feat + static_cast<size_t>(n0) * K * F;
+  //    one bulk copy, the < 16 bytes at either end by hand; zeros after the
+  //    valid rows (fc0 reads up to kDep ceil(F/kDep) columns of the last
+  //    row). The rows start at FX, shifted so that source and copy align alike.
+  const E* feat = static_cast<const E*>(a.nb_feat) + static_cast<size_t>(n0) * K * F;
   const int nfeat = rows_valid * F;
-  const int head = min(static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(feat) & 15)) & 15) / 4),
+  const int head = min(static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(feat) & 15)) & 15) /
+                                        sizeof(E)),
                        nfeat);
-  const int body = (nfeat - head) & ~3;
-  float* FX = FEAT + ((4 - head) & 3);
+  const int body = (nfeat - head) & ~(kVec - 1);
+  E* FX = FEAT + ((kVec - head) & (kVec - 1));
   if (tid == 0) {
-    mbar_expect_tx(feat_bar, body * sizeof(float));
-    if (body > 0) bulk_load(FX + head, feat + head, body * sizeof(float), feat_bar);
+    mbar_expect_tx(feat_bar, body * sizeof(E));
+    if (body > 0) bulk_load(FX + head, feat + head, body * sizeof(E), feat_bar);
   }
   if (tid < head) FX[tid] = feat[tid];
   if (tid < nfeat - head - body) FX[head + body + tid] = feat[head + body + tid];
-  for (int i = nfeat + tid; i < kRows * F + kKStep; i += kConsThreads) FX[i] = 0.f;
+  for (int i = nfeat + tid; i < kRows * F + kDep; i += kConsThreads) FX[i] = from_f<E>(0.f);
   for (int r = warp; r < kRows; r += kCons)
-    for (int c = emb_end + lane; c < kKStep * a.ks_e; c += 32) EMB[r * lde + c] = 0.f;
-  // ray-diff MLP weights [rd_w1 | rd_b1 | rd_w2 | rd_b2], then mv: cp.async
-  // (copies through registers would wait for device memory one by one)
+    for (int c = (kBf ? 0 : emb_end) + lane; c < kDep * a.ks_e; c += 32)
+      EMB[r * lde + c] = from_f<E>(0.f);
+  // ray-diff MLP weights [rd_w1 | rd_b1 | rd_w2 | rd_b2] (f32), then mv:
+  // cp.async (copies through registers would wait for device memory one by one)
   float* w1s = RDW;
   float* b1s = w1s + 4 * RD1;
   float* w2s = b1s + RD1;
@@ -650,13 +1073,16 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   for (int i = tid; i < RD1 * RD2; i += kConsThreads) cp_async4(w2s + i, a.rd_w2 + i);
   for (int i = tid; i < RD2; i += kConsThreads) cp_async4(b2s + i, a.rd_b2 + i);
   cp_async_commit();
+  constexpr int kPer = 4 / static_cast<int>(sizeof(E));  // elements of one 4-byte copy (W even in bf16)
   for (int t = warp; t < a.q_rows; t += kCons) {
-    const float* mr = a.mv + static_cast<size_t>(n0 + t) * W;
-    for (int c = lane; c < kHd; c += 32) {
-      if (t < t_valid && c < W)
-        cp_async4(MV + t * kLdh + c, mr + c);
-      else
-        MV[t * kLdh + c] = 0.f;
+    const E* mr = mv + static_cast<size_t>(n0 + t) * W;
+    for (int c = kPer * lane; c < kHd; c += 32 * kPer) {
+      if (t < t_valid && c < W) {
+        cp_async4(MV + t * kLd + c, mr + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) MV[t * kLd + c + e] = from_f<E>(0.f);
+      }
     }
   }
   cp_async_commit();
@@ -690,14 +1116,28 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
       rdiff[2] = diff[2] / den;
       rdiff[3] = d3[0] * nb[0] + d3[1] * nb[1] + d3[2] * nb[2];
     }
-    float* er = EMB + r * lde;
+    E* er = EMB + r * lde;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) er[off_col + d] = off[d];
-    for (int m = 0; m < RD1; ++m) {
-      float s = 0.f;
+    for (int d = 0; d < 3; ++d) er[off_col + d] = from_f<E>(off[d]);
+    if constexpr (kBf) {
+      // bf16 inputs and weights, f32 sums, then bf16(product) + bf16(bias)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], w1s[i * RD1 + m], s);
-      er[sin_col + m] = leaky(s + b1s[m]);
+      for (int d = 0; d < 3; ++d) OFF[r * 4 + d] = off[d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rdiff[i] = rnd<bf16>(rdiff[i]);
+      for (int m = 0; m < RD1; ++m) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], rnd<bf16>(w1s[i * RD1 + m]), s);
+        er[sin_col + m] = from_f<E>(leaky_b(rnd<bf16>(rnd<bf16>(s) + rnd<bf16>(b1s[m]))));
+      }
+    } else {
+      for (int m = 0; m < RD1; ++m) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], w1s[i * RD1 + m], s);
+        er[sin_col + m] = leaky(s + b1s[m]);
+      }
     }
   }
   bar_consumers(kConsThreads);
@@ -706,26 +1146,36 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   {
     float w2c[kMaxRd];
 #pragma unroll
-    for (int m = 0; m < kMaxRd; ++m) w2c[m] = (m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f;
+    for (int m = 0; m < kMaxRd; ++m) {
+      const float w = (m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f;
+      w2c[m] = kBf ? rnd<bf16>(w) : w;
+    }
     const float b2c = lane < RD2 ? b2s[lane] : 0.f;
     for (int r = warp; r < kRows; r += kCons) {
-      const float* h = EMB + r * lde + sin_col;
-      float s = b2c;
+      const E* h = EMB + r * lde + sin_col;
+      float s = kBf ? 0.f : b2c;
 #pragma unroll
       for (int m = 0; m < kMaxRd; ++m)
-        if (m < RD1) s = fmaf(h[m], w2c[m], s);
-      if (lane < RD2) EMB[r * lde + rd_col + lane] = leaky(s);
+        if (m < RD1) s = fmaf(to_f(h[m]), w2c[m], s);
+      if (lane < RD2) {
+        if constexpr (kBf)
+          EMB[r * lde + rd_col + lane] =
+              from_f<E>(leaky_b(rnd<bf16>(rnd<bf16>(s) + rnd<bf16>(b2c))));
+        else
+          EMB[r * lde + rd_col + lane] = leaky(s);
+      }
     }
   }
   bar_consumers(kConsThreads);
   // 4. frequency embedding (f32 phases, accurate sincosf), one warp a row
   for (int r = warp; r < kRows; r += kCons) {
-    float* er = EMB + r * lde;
+    E* er = EMB + r * lde;
     for (int j = lane; j < 3 * NF; j += 32) {
       float sn, cs;
-      sincosf(er[off_col + j % 3] * __ldg(a.freqs + j / 3), &sn, &cs);
-      er[sin_col + j] = sn;
-      er[cos_col + j] = cs;
+      const float o = kBf ? OFF[r * 4 + j % 3] : to_f(er[off_col + j % 3]);
+      sincosf(o * __ldg(a.freqs + j / 3), &sn, &cs);
+      er[sin_col + j] = from_f<E>(sn);
+      er[cos_col + j] = from_f<E>(cs);
     }
   }
   cp_async_wait<0>();
@@ -734,13 +1184,15 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
 
   // 5. base_mlp and the value projection on the tensor cores; once fc0 has
   //    read x_in, its region holds A and B, two [kRows, 128] tiles
-  float* A = FEAT;
-  float* B = FEAT + kRows * kLdh;
-  const Operand opA = tile_operand(A, kLdh);
-  const Operand opB = tile_operand(B, kLdh);
-  constexpr int kKs = kHd / kKStep;
+  E* A = FEAT;
+  E* B = FEAT + kRows * kLd;
+  const Operand<E> opA = tile_operand(static_cast<const E*>(A), kLd);
+  const Operand<E> opB = tile_operand(static_cast<const E*>(B), kLd);
+  constexpr int kKs = kHd / kDep;
   Ring ring{ring_buf, full, empty, a.nst, 0, 0u};
-  const Operand x_in{FX, F, F, a.ks_f, EMB, lde, a.ks_f + a.ks_e};
+  const int ks_trig = trig / kDep;   // k-steps of the sin (and cos) block, bf16
+  const Operand<E> x_in{FX, F, F, a.ks_f, EMB, lde, a.ks_f + a.ks_e,
+                        {a.ks_f + 1, a.ks_f + 1 + ks_trig, a.ks_f + 1 + 2 * ks_trig}};
   product<MT, true>(x_in, a.ks0p, ring, A, a.b0, W, true, true, warp, lane);
   bar_consumers(kConsThreads);
   product<MT, false>(opA, kKs, ring, B, a.b1, W, true, false, warp, lane);
@@ -754,8 +1206,8 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
     bar_consumers(kConsThreads);
     product<MT, false>(opB, kKs, ring, A, nullptr, 0, false, false, warp, lane);
     bar_consumers(kConsThreads);
-    layer_norm(a, A, kLdh, a.mv + static_cast<size_t>(n0) * W, W, n0, t_valid, warp, kCons,
-               lane);
+    layer_norm<E>(a, A, kLd, mv + static_cast<size_t>(n0) * W, W, n0, t_valid, warp, kCons,
+                  lane);
     return;
   }
 
@@ -763,45 +1215,71 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   product<MT, false>(opA, kKs, ring, A, nullptr, 0, false, true, warp, lane);  // k
   float acc[MT][4][4];
   const int mt_q = a.q_rows / 16;
-  gemm<MT, false, false, kWgmma>(acc, tile_operand(MV, kLdh), mt_q, kKs, ring, warp, lane);
-  store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, a.q_scale, warp, lane);
+  if constexpr (kBf) {
+    gemm_bf<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(MV), kLd), mt_q,
+                                      kKs, ring, warp, lane);
+    store_bf<MT>(acc, Q, mt_q, nullptr, 0, false, rnd<bf16>(a.q_scale), warp, lane);
+  } else {
+    gemm<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(MV), kLd), mt_q, kKs,
+                                   ring, warp, lane);
+    store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, a.q_scale, warp, lane);
+  }
   bar_consumers(kConsThreads);
 
   // 7. Lq=1 attention over the K neighbours
-  attention(Q, A, B, kLdh, K, t_valid, warp, kCons, lane);
+  attention<E>(Q, A, B, kLd, K, t_valid, warp, kCons, lane);
   bar_consumers(kConsThreads);
 
   // 8. output projection, residual and LayerNorm
-  gemm<MT, false, false, kWgmma>(acc, tile_operand(Q, kLdh), mt_q, kKs, ring, warp, lane);
+  if constexpr (kBf)
+    gemm_bf<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(Q), kLd), mt_q,
+                                      kKs, ring, warp, lane);
+  else
+    gemm<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(Q), kLd), mt_q, kKs,
+                                   ring, warp, lane);
   bar_consumers(kConsThreads);   // every warp has read o
-  store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, 1.f, warp, lane);
+  if constexpr (kBf)
+    store_bf<MT>(acc, Q, mt_q, nullptr, 0, false, 1.f, warp, lane);
+  else
+    store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, 1.f, warp, lane);
   bar_consumers(kConsThreads);
-  layer_norm(a, Q, kLdh, MV, kLdh, n0, t_valid, warp, kCons, lane);
+  layer_norm<E>(a, Q, kLd, MV, kLd, n0, t_valid, warp, kCons, lane);
 }
 
 struct Plan {
-  int ks_f, ks_e, ks0p, lde, feat_floats, region, q_rows, rdw_floats, nst;
+  int ks_f, ks_e, ks0p, lde, feat_elems, region, q_rows, rdw_floats, off_floats, nst;
   size_t smem;
 };
 
 // Shared memory: the ring, the x_in region (features [rows, F] at stride F
-// plus 8 floats of padding and <= 3 of alignment shift, then the embedding
-// [rows, lde]; later the A and B tiles), mv and q/o ([q_rows, kLdh] each, K > 1), the ray-diff MLP
-// weights and the barriers. A tile aims at two CTAs per SM, so that one
-// CTA's CUDA-core phases overlap the other's products.
-bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, Plan* p) {
-  p->ks_f = (F + kKStep - 1) / kKStep;
-  p->ks_e = (3 + 6 * NF + RD2 + kKStep - 1) / kKStep;
+// plus one MMA depth of padding and < 16 bytes of alignment shift, then
+// the embedding [rows, lde]; later the A and B tiles), mv and q/o
+// ([q_rows, ldh] each, K > 1), all of the element type (bf16: 2 bytes,
+// else f32); the ray-diff MLP weights, the f32 offsets (bf16 only) and the
+// barriers. A tile aims at two CTAs per SM, so that one CTA's CUDA-core
+// phases overlap the other's products.
+bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, bool bf, Plan* p) {
+  const int dep = bf ? kKStepB : kKStep;
+  const int ldh = bf ? kLdhB : kLdh;
+  const int es = bf ? 2 : 4;
+  const int vec = 16 / es;
+  p->ks_f = (F + dep - 1) / dep;
+  // embedding columns; in bf16 each block starts on a k-step
+  const int emb = bf ? kKStepB + 2 * ((3 * NF + kKStepB - 1) / kKStepB * kKStepB) + RD2
+                     : 3 + 6 * NF + RD2;
+  p->ks_e = (emb + dep - 1) / dep;
   p->ks0p = (p->ks_f + p->ks_e + kStageK - 1) / kStageK * kStageK;
-  p->lde = kKStep * p->ks_e + 4;   // 4 mod 8: conflict-free A fragments
-  p->feat_floats = (rows * F + kKStep + 3 + 3) / 4 * 4;   // + the alignment shift
-  const int x_in = p->feat_floats + rows * p->lde;
-  p->region = x_in > 2 * rows * kLdh ? x_in : 2 * rows * kLdh;
+  p->lde = dep * p->ks_e + (bf ? Elem<bf16>::kLdePad : Elem<float>::kLdePad);
+  p->feat_elems = (rows * F + dep + vec - 1 + vec - 1) / vec * vec;   // + the alignment shift
+  const int x_in = p->feat_elems + rows * p->lde;
+  p->region = x_in > 2 * rows * ldh ? x_in : 2 * rows * ldh;
+  p->region = (p->region + vec - 1) / vec * vec;
   p->q_rows = K > 1 ? (T + 15) / 16 * 16 : 0;
   p->rdw_floats = (4 * RD1 + RD1 + RD1 * RD2 + RD2 + 3) / 4 * 4;
+  p->off_floats = bf ? 4 * rows : 0;
   const size_t rest =
-      sizeof(float) * (static_cast<size_t>(p->region) + 2 * static_cast<size_t>(p->q_rows) * kLdh +
-                       p->rdw_floats) +
+      es * (static_cast<size_t>(p->region) + 2 * static_cast<size_t>(p->q_rows) * ldh) +
+      sizeof(float) * static_cast<size_t>(p->rdw_floats + p->off_floats) +
       (2 * kMaxStages + 2) * sizeof(uint64_t);
   size_t cap = kSmemMax;
   if (rest + 2 * kStageBytes <= static_cast<size_t>(kSmemHalf)) cap = kSmemHalf;
@@ -812,15 +1290,25 @@ bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, Plan* p)
   return true;
 }
 
-template <int MT>
+template <int MT, typename E>
 int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_agg_kernel<MT>,
+  cudaError_t err = cudaFuncSetAttribute(fused_agg_kernel<MT, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (a.N + a.T - 1) / a.T;
-  fused_agg_kernel<MT><<<grid, (kCons + 1) * 32, smem, stream>>>(a);
+  fused_agg_kernel<MT, E><<<grid, (kCons + 1) * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_rows(const Args& a, int rows, size_t smem, cudaStream_t s) {
+  switch (rows) {
+    case 16: return launch_kernel<1, E>(a, smem, s);
+    case 32: return launch_kernel<2, E>(a, smem, s);
+    case 64: return launch_kernel<4, E>(a, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -828,44 +1316,41 @@ int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
 extern "C" {
 
 // Shared-memory bytes and ring stages of one CTA of `rows` rows holding T
-// samples; 0 if the tile does not fit.
-size_t fused_agg_smem_bytes(int rows, int T, int K, int F, int NF, int RD1, int RD2,
+// samples (bf != 0: the bf16 instantiation); 0 if the tile does not fit.
+size_t fused_agg_smem_bytes(int rows, int T, int K, int F, int NF, int RD1, int RD2, int bf,
                             int* stages) {
   Plan p;
-  if (!make_plan(rows, T, K, F, NF, RD1, RD2, &p)) return 0;
+  if (!make_plan(rows, T, K, F, NF, RD1, RD2, bf != 0, &p)) return 0;
   if (stages != nullptr) *stages = p.nst;
   return p.smem;
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = success).
+// bf != 0: the bf16 instantiation (mv, nb_feat and wpack bf16), else f32.
 // wpack holds the seven products in the ring's order and layout
 // (ops/fused_agg.py:pack_agg_weights); rows in {16, 32, 64}, T*K <= rows.
-int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const float* mv,
-                      const float* nb_xyz, const float* nb_dir, const float* nb_feat,
+int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const void* mv,
+                      const float* nb_xyz, const float* nb_dir, const void* nb_feat,
                       const float* scale, const float* freqs, const float* rd_w1,
                       const float* rd_b1, const float* rd_w2, const float* rd_b2,
-                      const float* wpack, const float* b0, const float* b1, const float* b2,
+                      const void* wpack, const float* b0, const float* b1, const float* b2,
                       const float* ln_s, const float* ln_b, float* out, int N, int K, int F,
-                      int W, int NF, int RD1, int RD2, int rows, int T, float q_scale,
+                      int W, int NF, int RD1, int RD2, int rows, int T, float q_scale, int bf,
                       void* stream) {
   if (N <= 0) return 0;
   Plan p;
-  if (T < 1 || K < 1 || T * K > rows || W < 1 || W > kHd || RD1 < 1 || RD1 > kMaxRd ||
-      RD1 > 6 * NF || RD2 < 1 || RD2 > kMaxRd || !make_plan(rows, T, K, F, NF, RD1, RD2, &p))
+  if (T < 1 || K < 1 || T * K > rows || W < 1 || W > kHd || (bf && W % 2) || RD1 < 1 ||
+      RD1 > kMaxRd || RD1 > 6 * NF || RD2 < 1 || RD2 > kMaxRd ||
+      !make_plan(rows, T, K, F, NF, RD1, RD2, bf != 0, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{xyz,    dir,    mv,     nb_xyz,        nb_dir,   nb_feat,  scale,
                freqs,  rd_w1,  rd_b1,  rd_w2,         rd_b2,    wpack,    b0,
                b1,     b2,     ln_s,   ln_b,          out,      N,        K,
                F,      W,      NF,     RD1,           RD2,      T,        dir_stride,
-               p.ks_f, p.ks_e, p.ks0p, p.lde,         p.feat_floats,      p.region,
-               p.q_rows,       p.nst,  p.rdw_floats,  q_scale};
+               p.ks_f, p.ks_e, p.ks0p, p.lde,         p.feat_elems,       p.region,
+               p.q_rows,       p.nst,  p.rdw_floats,  p.off_floats,       q_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 16: return launch_kernel<1>(a, p.smem, s);
-    case 32: return launch_kernel<2>(a, p.smem, s);
-    case 64: return launch_kernel<4>(a, p.smem, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bf ? launch_rows<bf16>(a, rows, p.smem, s) : launch_rows<float>(a, rows, p.smem, s);
 }
 
 }  // extern "C"

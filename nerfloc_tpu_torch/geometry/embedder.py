@@ -38,12 +38,17 @@ class Embedder:
 def position_embedding_sine(H: int, W: int, num_pos_feats: int,
                             device=None, dtype=torch.float32) -> Tensor:
     """[H, W, C] sine embedding of normalized (x, y) grid coordinates:
-    sin(i*pi*p) for i in 1..depth, then cos, depth = num_pos_feats // 2."""
-    y = (torch.arange(H, dtype=dtype, device=device) + 0.5) / (H + 1e-6)
-    x = (torch.arange(W, dtype=dtype, device=device) + 0.5) / (W + 1e-6)
+    sin(i*pi*p) for i in 1..depth, then cos, depth = num_pos_feats // 2.
+    Computed in `dtype`, each step rounded to it, the Python constants
+    too (as JAX computes it for a bf16 `dtype`)."""
+    def c(v: float):
+        return v if dtype == torch.float32 else torch.tensor(v, dtype=dtype)
+
+    y = (torch.arange(H, dtype=dtype, device=device) + c(0.5)) / c(H + 1e-6)
+    x = (torch.arange(W, dtype=dtype, device=device) + c(0.5)) / c(W + 1e-6)
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     pos = torch.stack([xx, yy], dim=-1)                       # [H, W, 2]
     depth = num_pos_feats // 2
-    sins = [torch.sin(i * math.pi * pos) for i in range(1, depth + 1)]
-    coss = [torch.cos(i * math.pi * pos) for i in range(1, depth + 1)]
+    sins = [torch.sin(c(i * math.pi) * pos) for i in range(1, depth + 1)]
+    coss = [torch.cos(c(i * math.pi) * pos) for i in range(1, depth + 1)]
     return torch.cat(sins + coss, dim=-1)

@@ -1,7 +1,14 @@
 """Multi-view feature aggregation with NeuRay visibility weighting
 (counterpart of nerfloc_tpu/models/fields/aggregator.py, unpruned paths),
 the NeuRay alpha weights of the guided render pass, and the support views'
-depth supervision."""
+depth supervision.
+
+`dtype` is the compute dtype (models/lowp.py) of the decoder and the
+output head. Samples of bf16 tables come out bf16 (the packed render
+tables) or f32 (bilinear blends of bf16 maps with f32 weights, as in the
+context build); the visibility decode is f32 and is cast to the samples'
+dtype before the fusion, which runs in that dtype.
+"""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -12,6 +19,7 @@ from torch import nn
 
 from ...ops.interp import (bilinear_sample_views, nearest_indices,
                            packed_bilinear_sample_views)
+from ..lowp import F32, const, dense
 from . import neuray
 from .projector import (Projection, compute_projections, feature_uv_scale,
                         project_and_sample)
@@ -31,6 +39,11 @@ class SupportViews(NamedTuple):
 
 
 def fused_mean_variance(x: Tensor, weight: Tensor):
+    if x.dtype != F32:
+        # bf16: the products go unrounded into f32 sums, rounded after
+        mean = torch.sum(x.float() * weight.float(), dim=1, keepdim=True).to(x.dtype)
+        sq = (x - mean) ** 2
+        return mean, torch.sum(weight.float() * sq.float(), dim=1, keepdim=True).to(x.dtype)
     mean = torch.sum(x * weight, dim=1, keepdim=True)
     var = torch.sum(weight * (x - mean) ** 2, dim=1, keepdim=True)
     return mean, var
@@ -44,9 +57,10 @@ def _rf_valid(proj, H: int, W: int) -> Tensor:
 
 class MultiviewFeatureAggregator(nn.Module):
     def __init__(self, feat_channels: int, out_channels: int = 128,
-                 hidden_dim: int = 64):
+                 hidden_dim: int = 64, dtype: torch.dtype = F32):
         super().__init__()
-        self.dist_decoder = neuray.MixtureLogisticsDistDecoder()
+        self.dtype = dtype
+        self.dist_decoder = neuray.MixtureLogisticsDistDecoder(dtype=dtype)
         self.out_fc1 = nn.Linear(2 * (3 + feat_channels) + 3, hidden_dim)
         self.out_fc2 = nn.Linear(hidden_dim, out_channels)
 
@@ -159,14 +173,22 @@ class MultiviewFeatureAggregator(nn.Module):
             rgb, feat, _ = project_and_sample(xyz, sv.Ks, sv.poses, sv.images, featmaps)
             vis, depth_diff = self.predict_visibility(sv, xyz)
         rgb_feat = torch.cat([rgb, feat], dim=-1)
-        vis = vis.transpose(0, 1)[..., None]
-        out = self._fuse(rgb_feat, vis, depth_diff.transpose(0, 1)[..., None])
+        vis = vis.transpose(0, 1)[..., None].to(rgb_feat.dtype)
+        out = self._fuse(rgb_feat, vis,
+                         depth_diff.transpose(0, 1)[..., None].to(rgb_feat.dtype))
         return out, rgb_feat, vis
 
     def _fuse(self, rgb_feat: Tensor, vis: Tensor, depth_diff: Tensor) -> Tensor:
-        weight = vis / (torch.sum(vis, dim=1, keepdim=True) + 1e-8)
+        if vis.dtype == F32:
+            weight = vis / (torch.sum(vis, dim=1, keepdim=True) + 1e-8)
+            w_mean = torch.mean(weight, dim=1)
+        else:
+            vsum = torch.sum(vis.float(), dim=1, keepdim=True).to(vis.dtype)
+            weight = vis / (vsum + const(1e-8, vis))
+            w_mean = torch.mean(weight.float(), dim=1).to(vis.dtype)
         rf_mean, rf_var = fused_mean_variance(rgb_feat, weight)
         dd_mean, dd_var = fused_mean_variance(depth_diff, weight)
         globalfeat = torch.cat([rf_mean, rf_var, dd_mean, dd_var], dim=-1)[:, 0]
-        feat_agg = torch.cat([globalfeat, torch.mean(weight, dim=1)], dim=-1)
-        return F.elu(self.out_fc2(F.elu(self.out_fc1(feat_agg))))
+        feat_agg = torch.cat([globalfeat, w_mean], dim=-1)
+        dt = self.dtype
+        return F.elu(dense(self.out_fc2, F.elu(dense(self.out_fc1, feat_agg, dt)), dt))

@@ -10,6 +10,13 @@ bf16 hi/mid/lo parts (exact to f32) and the features as bf16, because TPU
 row gathers of f32 are slow. The port gathers the f32 geometry directly and
 the features from a bf16 copy of their table, so its outputs match.
 
+`dtype` is the compute dtype (models/lowp.py): at bf16 the MLPs, the
+aggregator, the NeuRay encoder and the ray U-Net run in bf16, the points'
+descriptors and the sampling tables are bf16 while their geometry stays
+f32, and the fused aggregation takes bf16 mv_agg and neighbour features
+(its bf16 instantiation). With cfg.use_scene_coord_memorization the
+descriptors add the coordinate heads' MLP of the frequency-embedded point.
+
 Render options that are off by default (`knn_mode` 'ray'/'flat', the merged
 table, view pruning, int8 tables, one-hot geometry assembly) are not
 ported: `build_scene_context` and `render_rays` raise NotImplementedError
@@ -30,6 +37,7 @@ from ...geometry.math import safe_normalize, safe_sqrt
 from ...ops.fused_agg import extract_agg_params, fused_neighbor_agg
 from ...ops.interp import pack_bilinear_corners, resize_nearest
 from ...ops.knn import knn, knn_gather, knn_proj, pack_xyz_window, topk_first
+from ..lowp import F32, dense, leaky_relu, sigmoid, softmax, softplus
 from ..transformer import MultiHeadAttention
 from .aggregator import MultiviewFeatureAggregator, SupportViews
 from .context import NeuralPoints, SceneContext
@@ -41,11 +49,11 @@ Tensor = torch.Tensor
 
 
 def _leaky(y: Tensor) -> Tensor:
-    return F.leaky_relu(y, 0.01)
+    return leaky_relu(y, 0.01)
 
 
-_FINAL = {"leaky_relu": _leaky, "sigmoid": torch.sigmoid, "softplus": F.softplus,
-          None: lambda y: y}
+_ACT = {"leaky_relu": _leaky, "relu": F.relu, "sigmoid": sigmoid,
+        "softplus": softplus, None: lambda y: y}
 
 
 def check_render_options(cfg: Config) -> None:
@@ -69,58 +77,69 @@ def _linspace01(n: int, like: Tensor) -> Tensor:
 
 
 class MLP(nn.Module):
-    """Linear layers fc0..fcN with leaky ReLU (0.01) between them and an
-    optional final activation."""
+    """Linear layers fc0..fcN with `activation` (leaky ReLU 0.01 or ReLU)
+    between them and an optional final activation, in the compute dtype."""
 
     def __init__(self, cin: int, features: Sequence[int],
-                 final_activation: Optional[str] = None):
+                 final_activation: Optional[str] = None,
+                 activation: str = "leaky_relu", dtype: torch.dtype = F32):
         super().__init__()
         dims = [cin, *features]
         for i in range(len(features)):
             setattr(self, f"fc{i}", nn.Linear(dims[i], dims[i + 1]))
         self.n = len(features)
-        self.final = _FINAL[final_activation]
+        self.act = _ACT[activation]
+        self.final = _ACT[final_activation]
+        self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
         for i in range(self.n):
-            x = getattr(self, f"fc{i}")(x)
-            x = _leaky(x) if i < self.n - 1 else self.final(x)
+            x = dense(getattr(self, f"fc{i}"), x, self.dtype)
+            x = self.act(x) if i < self.n - 1 else self.final(x)
         return x
 
 
 class ConditionalNeRF(nn.Module):
     RENDER_HEADS = ("ray_unet", "sigma_mlp", "feat_mlp", "rgb_blending_mlp", "beta_mlp")
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, dtype: torch.dtype = F32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         W = cfg.model_3d_hidden_dim
         C = cfg.backbone2d_fpn_dim
+        hd = cfg.matcher_hidden_dim
         self.feat_dim = 3 + C                       # rgb + backbone feature
         self.xyz_embed = Embedder(cfg.multires)
         self.view_embed = Embedder(cfg.multires_views)
         self.register_buffer("freqs", torch.tensor(self.xyz_embed.freqs),
                              persistent=False)
         self.ray_diff_fc = MLP(4, (16, self.view_embed.out_dim),
-                               final_activation="leaky_relu")
-        self.multiview_aggregator = MultiviewFeatureAggregator(C, out_channels=W)
-        self.depth_fusion = DepthFusionNet()
-        self.confidence_mlp = MLP(W, (64, 1), final_activation="sigmoid")
-        self.keypoint_head = MLP(C, (1,), final_activation="sigmoid")
+                               final_activation="leaky_relu", dtype=dtype)
+        self.multiview_aggregator = MultiviewFeatureAggregator(C, out_channels=W, dtype=dtype)
+        self.depth_fusion = DepthFusionNet(dtype)
+        self.confidence_mlp = MLP(W, (64, 1), final_activation="sigmoid", dtype=dtype)
+        self.keypoint_head = MLP(C, (1,), final_activation="sigmoid", dtype=dtype)
         self.base_mlp = MLP(self.feat_dim + self.xyz_embed.out_dim + self.view_embed.out_dim,
-                            (W, W, W), final_activation="leaky_relu")
-        self.base_mlp_attn = MultiHeadAttention(4, W, 32, 32)
-        self.proj_layer_3d_coarse = nn.Linear(W + self.feat_dim, cfg.matcher_hidden_dim)
-        self.proj_layer_3d_fine = nn.Linear(W + self.feat_dim, cfg.matcher_hidden_dim)
+                            (W, W, W), final_activation="leaky_relu", dtype=dtype)
+        self.base_mlp_attn = MultiHeadAttention(4, W, 32, 32, dtype)
+        self.proj_layer_3d_coarse = nn.Linear(W + self.feat_dim, hd)
+        self.proj_layer_3d_fine = nn.Linear(W + self.feat_dim, hd)
+        if cfg.use_scene_coord_memorization:
+            # per-scene coordinate heads on the embedded point
+            self.coord_desc_mlp_coarse = MLP(self.xyz_embed.out_dim, (W, W, hd),
+                                             activation="relu", dtype=dtype)
+            self.coord_desc_mlp_fine = MLP(self.xyz_embed.out_dim, (W, W, hd),
+                                           activation="relu", dtype=dtype)
         # render heads (RENDER_HEADS)
-        self.ray_unet = RayUnet(W, cfg.render.N_samples + cfg.render.N_importance)
-        self.sigma_mlp = MLP(W, (1,), final_activation="softplus")
+        self.ray_unet = RayUnet(W, cfg.render.N_samples + cfg.render.N_importance, dtype)
+        self.sigma_mlp = MLP(W, (1,), final_activation="softplus", dtype=dtype)
         if cfg.render.render_feature:
-            self.feat_mlp = MLP(W, (W, C))
+            self.feat_mlp = MLP(W, (W, C), dtype=dtype)
         # input rows: [feature_agg | mv_feat (rgb + feature) | mv_vis | ray_diff]
-        self.rgb_blending_mlp = MLP(W + self.feat_dim + 1 + 4, (32, 16, 1))
+        self.rgb_blending_mlp = MLP(W + self.feat_dim + 1 + 4, (32, 16, 1), dtype=dtype)
         if cfg.render.use_render_uncertainty:
-            self.beta_mlp = MLP(W, (1,), final_activation="softplus")
+            self.beta_mlp = MLP(W, (1,), final_activation="softplus", dtype=dtype)
         self.beta_min = 0.1
 
     # -- scene context ------------------------------------------------------
@@ -142,7 +161,8 @@ class ConditionalNeRF(nn.Module):
             yy, xx = torch.meshgrid(y, x, indexing="ij")
             pts_cam = torch.stack([xx * d, yy * d, d], dim=-1)
             pts.append((pts_cam @ c2w[:3, :3].T + c2w[:3, 3]).reshape(-1, 3))
-            desc.append(torch.cat([im, feat], dim=-1).reshape(h * w, -1))
+            desc.append(torch.cat([im.to(self.dtype), feat.to(self.dtype)],
+                                  dim=-1).reshape(h * w, -1))
             dirs.append(torch.cat([rays_d, d[..., None]], dim=-1).reshape(-1, 4))
             masks.append((d > 0).reshape(-1))
         pts_w, feature = torch.cat(pts), torch.cat(desc)
@@ -177,12 +197,13 @@ class ConditionalNeRF(nn.Module):
         4-corner table of the ray features."""
         V = sv.images.shape[0]
         hf, wf = feat_fine_src.shape[1:3]
+        dt = self.dtype
         fused_fine_packed = vis_corner_packed = None
         if feat_fine_src.shape[1:3] == sv.vis_featmaps.shape[1:3]:
             fused_fine_packed = pack_bilinear_corners(
-                torch.cat([feat_fine_src, sv.vis_featmaps], dim=-1))
+                torch.cat([feat_fine_src.to(dt), sv.vis_featmaps.to(dt)], dim=-1))
         if self.cfg.render.N_importance > 0:
-            vis_corner_packed = pack_bilinear_corners(sv.vis_featmaps)
+            vis_corner_packed = pack_bilinear_corners(sv.vis_featmaps.to(dt))
         xyz_window_packed = pack_xyz_window(fine.xyz.reshape(V, hf, wf, 3),
                                             fine.mask.reshape(V, hf, wf),
                                             win=self.cfg.render.knn_proj_window)
@@ -190,7 +211,7 @@ class ConditionalNeRF(nn.Module):
                             feat_coarse_src=feat_coarse_src,
                             feat_fine_src=feat_fine_src,
                             fused_fine_packed=fused_fine_packed,
-                            rgb_packed=pack_bilinear_corners(sv.images),
+                            rgb_packed=pack_bilinear_corners(sv.images.to(dt)),
                             xyz_window_packed=xyz_window_packed,
                             vis_corner_packed=vis_corner_packed)
 
@@ -203,7 +224,7 @@ class ConditionalNeRF(nn.Module):
         score = ctx.coarse.kp_score[:, 0]
         logits = torch.where(ctx.coarse.mask, torch.log(torch.clamp(score, min=1e-12)),
                              torch.full_like(score, float("-inf")))
-        _, idx = topk_first(logits + gumbel, num)
+        _, idx = topk_first(logits + gumbel.to(logits.dtype), num)
         best = torch.argmax(logits)
         idx = torch.where(ctx.coarse.mask[idx], idx, best)
         return ctx.coarse.xyz[idx], ctx.coarse.xyz_ndc[idx], idx
@@ -258,13 +279,15 @@ class ConditionalNeRF(nn.Module):
                                              nb_xyz, nb_dir, nb_feat, scale,
                                              params, self.freqs)
         else:
+            dt = self.dtype
             ray_diff = safe_normalize(direction[:, None, :3] - nb_dir[..., :3])
             ray_dot = torch.sum(direction[:, None, :3] * nb_dir[..., :3], dim=-1,
                                 keepdim=True)
+            # f32 phases and sin/cos, only the embedding cast down
             point_feature = self.base_mlp(torch.cat([
                 nb_feat,
-                self.xyz_embed((xyz[:, None, :] - nb_xyz) / scale),
-                self.ray_diff_fc(torch.cat([ray_diff, ray_dot], dim=-1)),
+                self.xyz_embed((xyz[:, None, :] - nb_xyz) / scale).to(dt),
+                self.ray_diff_fc(torch.cat([ray_diff, ray_dot], dim=-1).to(dt)),
             ], dim=-1))
             feature_agg = self.base_mlp_attn(mv_agg[:, None, :], point_feature,
                                              point_feature)[:, 0]
@@ -284,15 +307,22 @@ class ConditionalNeRF(nn.Module):
         pts3d, pts3d_ndc, sample_idx = self.sample_keypoints(
             ctx, self.cfg.matching.fine_num_3d_keypoints, gumbel)
         qd = self.query(ctx, pts3d, level="coarse", K=8)
-        desc = self.proj_layer_3d_coarse(
-            torch.cat([qd["feature_agg"], ctx.coarse.feature[sample_idx]], dim=1))
+        desc = dense(self.proj_layer_3d_coarse,
+                     torch.cat([qd["feature_agg"], ctx.coarse.feature[sample_idx]], dim=1),
+                     self.dtype)
+        if self.cfg.use_scene_coord_memorization:
+            desc = desc + self.coord_desc_mlp_coarse(self.xyz_embed(pts3d))
         return desc, pts3d, pts3d_ndc
 
     def query_fine(self, ctx: SceneContext, points: Tensor) -> Tensor:
         _, idx = knn(points, ctx.fine.xyz, K=1, points_mask=ctx.fine.mask)
         feature_2d = knn_gather(ctx.fine.feature, idx)[:, 0]
         qd = self.query(ctx, points, level="fine", K=1)
-        return self.proj_layer_3d_fine(torch.cat([qd["feature_agg"], feature_2d], dim=1))
+        desc = dense(self.proj_layer_3d_fine, torch.cat([qd["feature_agg"], feature_2d], dim=1),
+                     self.dtype)
+        if self.cfg.use_scene_coord_memorization:
+            desc = desc + self.coord_desc_mlp_fine(self.xyz_embed(points))
+        return desc
 
     # -- rendering ----------------------------------------------------------
 
@@ -344,15 +374,26 @@ class ConditionalNeRF(nn.Module):
         over its row blocks, so feature_agg enters once per sample and the
         [N, V, W+3+C+5] input is never built."""
         fc = self.rgb_blending_mlp
+        dt = self.dtype
         W, Cf = feature_agg.shape[-1], mv_feat.shape[-1]
-        k_fa, k_mv, k_vis, k_rd = fc.fc0.weight.split([W, Cf, 1, 4], dim=1)
+        k_fa, k_mv, k_vis, k_rd = fc.fc0.weight.to(dt).split([W, Cf, 1, 4], dim=1)
         ray_diff = compute_angle(xyz, pose, ctx.sv.poses).transpose(0, 1)  # [N, V, 4]
-        h = F.linear(feature_agg, k_fa, fc.fc0.bias)[:, None, :]
-        h = h + mv_feat @ k_mv.T + mv_vis * k_vis[:, 0] + ray_diff @ k_rd.T
-        bw = fc.fc2(_leaky(fc.fc1(_leaky(h))))
+        if dt == F32:
+            h = F.linear(feature_agg, k_fa, fc.fc0.bias)[:, None, :]
+            h = h + mv_feat @ k_mv.T + mv_vis * k_vis[:, 0] + ray_diff @ k_rd.T
+        else:
+            # the partial sums in bf16, each product and sum rounded
+            h = (feature_agg.to(dt) @ k_fa.T + fc.fc0.bias.to(dt))[:, None, :]
+            h = h + mv_feat.to(dt) @ k_mv.T
+            h = h + mv_vis.to(dt) * k_vis[:, 0]
+            h = h + ray_diff.to(dt) @ k_rd.T
+        bw = dense(fc.fc2, _leaky(dense(fc.fc1, _leaky(h), dt)), dt)
         bw = torch.where(mv_vis == 0, torch.full_like(bw, -1e9), bw)
-        bw = torch.softmax(bw, dim=1)
-        return torch.sum(mv_feat[:, :, :3] * bw, dim=1)
+        bw = softmax(bw, dim=1)
+        rgb = mv_feat[:, :, :3]
+        if bw.dtype == F32:
+            return torch.sum(rgb * bw, dim=1)
+        return torch.sum(rgb.float() * bw.float(), dim=1).to(bw.dtype)
 
     def composite(self, z_vals: Tensor, sigma: Tensor, rgb: Tensor
                   ) -> Dict[str, Tensor]:
@@ -398,7 +439,9 @@ class ConditionalNeRF(nn.Module):
         feature_agg = qd["feature_agg"]
 
         geo = self.ray_unet(feature_agg.reshape(R, S, -1)).reshape(R * S, -1)
-        sigma = self.sigma_mlp(geo).reshape(R, S)
+        # the density's softplus meets f32 intervals: its last step is f32
+        sig = self.sigma_mlp
+        sigma = softplus(dense(sig.fc0, geo, sig.dtype), f32_out=True).reshape(R, S)
         rgb = self.blend_views(ctx, xyz, pose, feature_agg, qd["multiview_feature"],
                                qd["multiview_visibility"]).reshape(R, S, 3)
         out = self.composite(z_vals, sigma, rgb)

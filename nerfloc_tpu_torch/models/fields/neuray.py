@@ -5,6 +5,12 @@ Depth math runs in inverse-normalized depth
 d_norm = (-1/d + 1/near) / (1/near - 1/far). Convolutions use reflect
 padding (asymmetric for even kernels) and InstanceNorm with population
 variance, as the reference does. Public layout is NHWC.
+
+`dtype` is the compute dtype (models/lowp.py). In bf16 the convolutions
+and decoder layers run in bf16; each instance norm takes f32 statistics of
+its bf16 input and, with its f32 affine, returns f32, so the next
+convolution rounds its input again; the ray features come out bf16. The
+visibility math stays f32 (the decoder's outputs meet f32 depths).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from torch import nn
 
 from ...geometry.cameras import backproject_depth, camera_project, world_to_camera
 from ...ops.interp import bilinear_sample
+from ..lowp import F32, conv, dense, normalize, sigmoid, softplus
 
 Tensor = torch.Tensor
 
@@ -64,13 +71,14 @@ class RConv(nn.Module):
     """Reflect-padded VALID conv (NCHW inside); flax name `Conv_0`."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 bias: bool = False):
+                 bias: bool = False, dtype: torch.dtype = F32):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride=stride, bias=bias)
         self.pad = ((kernel - 1) // 2, kernel - 1 - (kernel - 1) // 2)
+        self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.Conv_0(_reflect_pad(x, *self.pad))
+        return conv(self.Conv_0, _reflect_pad(x, *self.pad), self.dtype)
 
 
 class INorm(nn.Module):
@@ -82,21 +90,20 @@ class INorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: Tensor) -> Tensor:
-        mean = x.mean(dim=(-2, -1), keepdim=True)
-        var = x.var(dim=(-2, -1), keepdim=True, unbiased=False)
-        y = (x - mean) * torch.rsqrt(var + 1e-5)
+        y = normalize(x, (-2, -1), 1e-5, f32_out=True)
         return y * self.scale[:, None, None] + self.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int, downsample: bool):
+    def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.conv1 = RConv(cin, planes, 3, stride)
+        self.conv1 = RConv(cin, planes, 3, stride, dtype=dtype)
         self.bn1 = INorm(planes)
-        self.conv2 = RConv(planes, planes, 3, 1)
+        self.conv2 = RConv(planes, planes, 3, 1, dtype=dtype)
         self.bn2 = INorm(planes)
         if downsample:
-            self.ds_conv = RConv(cin, planes, 1, stride)
+            self.ds_conv = RConv(cin, planes, 1, stride, dtype=dtype)
             self.ds_bn = INorm(planes)
         self.downsample = downsample
 
@@ -110,9 +117,9 @@ class BasicBlock(nn.Module):
 class ConvIN(nn.Module):
     """conv (bias) + InstanceNorm + ELU."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 3):
+    def __init__(self, cin: int, cout: int, kernel: int = 3, dtype: torch.dtype = F32):
         super().__init__()
-        self.conv = RConv(cin, cout, kernel, 1, bias=True)
+        self.conv = RConv(cin, cout, kernel, 1, bias=True, dtype=dtype)
         self.bn = INorm(cout)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -132,18 +139,19 @@ def _pad_or_crop_hw(x: Tensor, th: int, tw: int) -> Tensor:
 class ResEncoder(nn.Module):
     """12-channel input -> 32-channel ray feats at 1/4 resolution (NCHW)."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(12, 32, 8, stride=2, bias=False)
         self.bn1 = INorm(32)
         for name, cin, planes in (("layer1", 32, 32), ("layer2", 32, 64),
                                   ("layer3", 64, 128)):
-            setattr(self, f"{name}_0", BasicBlock(cin, planes, 2, True))
-            setattr(self, f"{name}_1", BasicBlock(planes, planes, 1, False))
-        self.upconv3 = ConvIN(128, 64)
-        self.iconv3 = ConvIN(128, 64)
-        self.upconv2 = ConvIN(64, 32)
-        self.iconv2 = ConvIN(64, 32)
+            setattr(self, f"{name}_0", BasicBlock(cin, planes, 2, True, dtype))
+            setattr(self, f"{name}_1", BasicBlock(planes, planes, 1, False, dtype))
+        self.upconv3 = ConvIN(128, 64, dtype=dtype)
+        self.iconv3 = ConvIN(128, 64, dtype=dtype)
+        self.upconv2 = ConvIN(64, 32, dtype=dtype)
+        self.iconv2 = ConvIN(64, 32, dtype=dtype)
         self.out_conv = nn.Conv2d(32, 32, 1)
 
     def _layer(self, x: Tensor, name: str) -> Tensor:
@@ -155,21 +163,22 @@ class ResEncoder(nn.Module):
         return torch.cat([x, _pad_or_crop_hw(skip, x.shape[-2], x.shape[-1])], dim=1)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = F.relu(self.bn1(self.conv1(_reflect_pad(x, 2, 2))))
+        x = F.relu(self.bn1(conv(self.conv1, _reflect_pad(x, 2, 2), self.dtype)))
         x1 = self._layer(x, "layer1")
         x2 = self._layer(x1, "layer2")
         x3 = self._layer(x2, "layer3")
         u3 = self.iconv3(self._up(x3, x2, self.upconv3))
         u2 = self.iconv2(self._up(u3, x1, self.upconv2))
-        return self.out_conv(u2)
+        return conv(self.out_conv, u2, self.dtype)
 
 
 class DepthFusionNet(nn.Module):
     """images [V,H,W,3], depths [V,H,W] -> ray feats [V, H/4, W/4, 32]."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = F32):
         super().__init__()
-        self.fuse_net = ResEncoder()
+        self.dtype = dtype
+        self.fuse_net = ResEncoder(dtype)
         self.depth_skip1 = nn.Conv2d(1, 8, 2, stride=2)
         self.depth_skip2 = nn.Conv2d(8, 16, 2, stride=2)
         self.conv_out = nn.Conv2d(48, 32, 1)
@@ -180,14 +189,16 @@ class DepthFusionNet(nn.Module):
         diff = cross_view_diff_feats(images, d_norm[..., 0], Ks, c2ws, near, far)
         x = torch.cat([images, d_norm, diff], dim=-1).permute(0, 3, 1, 2)
         feats = self.fuse_net(x)
-        ds = self.depth_skip2(F.relu(self.depth_skip1(d_norm.permute(0, 3, 1, 2))))
+        dt = self.dtype
+        ds = conv(self.depth_skip2, F.relu(conv(self.depth_skip1, d_norm.permute(0, 3, 1, 2), dt)),
+                  dt)
         if ds.shape[-2:] != feats.shape[-2:]:
             # the reference resizes with antialiasing here; neither the
             # localization shapes (240x320) nor the test shapes reach it
             raise NotImplementedError(
                 f"depth-skip {tuple(ds.shape[-2:])} != encoder "
                 f"{tuple(feats.shape[-2:])}: antialiased resize not ported")
-        out = self.conv_out(torch.cat([ds, feats], dim=1))
+        out = conv(self.conv_out, torch.cat([ds, feats], dim=1), dt)
         return out.permute(0, 2, 3, 1).contiguous()
 
 
@@ -224,28 +235,42 @@ def cross_view_diff_feats(images: Tensor, d_norm: Tensor, Ks: Tensor,
 
 
 class _DecoderMLP(nn.Module):
-    def __init__(self, out: int):
+    def __init__(self, out: int, dtype: torch.dtype = F32):
         super().__init__()
         self.fc1 = nn.Linear(32, 32)
         self.fc2 = nn.Linear(32, 32)
         self.fc3 = nn.Linear(32, out)
+        self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.fc3(F.elu(self.fc2(F.elu(self.fc1(x)))))
+        dt = self.dtype
+        return dense(self.fc3, F.elu(dense(self.fc2, F.elu(dense(self.fc1, x, dt)), dt)), dt)
 
 
 class MixtureLogisticsDistDecoder(nn.Module):
-    """32-d ray feats -> (mean[2], var[2] (+0.05), vis[1], aw[1])."""
+    """32-d ray feats -> (mean[2], var[2] (+0.05), vis[1], aw[1]).
 
-    def __init__(self, bias_val: float = 0.05):
+    In bf16 the decoder layers run in bf16. mean, var and vis then meet
+    f32 depths, so their last step (softplus, the +0.05, sigmoid) is taken
+    in f32 and they are returned f32; aw enters the bf16 mixture weights
+    [aw, 1 - aw] and stays bf16."""
+
+    def __init__(self, bias_val: float = 0.05, dtype: torch.dtype = F32):
         super().__init__()
-        self.mean_decoder = _DecoderMLP(2)
-        self.var_decoder = _DecoderMLP(2)
-        self.vis_decoder = _DecoderMLP(1)
-        self.aw_decoder = _DecoderMLP(1)
+        self.mean_decoder = _DecoderMLP(2, dtype)
+        self.var_decoder = _DecoderMLP(2, dtype)
+        self.vis_decoder = _DecoderMLP(1, dtype)
+        self.aw_decoder = _DecoderMLP(1, dtype)
         self.bias_val = bias_val
 
     def forward(self, feats: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        dt = self.mean_decoder.dtype
+        if dt != F32:
+            var = softplus(self.var_decoder(feats)).float()
+            return (softplus(self.mean_decoder(feats), f32_out=True),
+                    var + float(torch.tensor(self.bias_val, dtype=dt)),
+                    sigmoid(self.vis_decoder(feats), f32_out=True),
+                    sigmoid(self.aw_decoder(feats)))
         mean = F.softplus(self.mean_decoder(feats))
         var = F.softplus(self.var_decoder(feats)) + self.bias_val
         vis = torch.sigmoid(self.vis_decoder(feats))
@@ -253,7 +278,7 @@ class MixtureLogisticsDistDecoder(nn.Module):
         return mean, var, vis, aw
 
     def predict_mean(self, feats: Tensor) -> Tensor:
-        return F.softplus(self.mean_decoder(feats))
+        return softplus(self.mean_decoder(feats), f32_out=True)
 
 
 def decode_ref_depths(mean: Tensor, near: Tensor, far: Tensor) -> Tensor:

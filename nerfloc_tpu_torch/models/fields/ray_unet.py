@@ -6,12 +6,17 @@ max-pool levels down and three transposed-convolution levels up with skip
 connections, and a last convolution over [input, up]. The module boundary
 is [R, S, C] as in the JAX package; inside, tensors are [R, C, S] for
 nn.Conv1d. Weight names follow the flax tree (conv1/conv, conv1/ln, ...).
+`dtype` is the compute dtype (models/lowp.py) of the convolutions; each
+LayerNorm takes f32 statistics of its bf16 input and, with its f32 affine,
+returns f32, so the U-Net's output is f32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..lowp import F32, conv, normalize
 
 Tensor = torch.Tensor
 
@@ -26,17 +31,17 @@ class LayerNormSC(nn.Module):
         self.bias = nn.Parameter(torch.zeros(samples, channels))
 
     def forward(self, x: Tensor) -> Tensor:
-        mean = x.mean(dim=(-2, -1), keepdim=True)
-        var = x.var(dim=(-2, -1), keepdim=True, unbiased=False)
-        y = (x - mean) * torch.rsqrt(var + 1e-5)
+        y = normalize(x, (-2, -1), 1e-5, f32_out=True)
         return y * self.scale.T + self.bias.T
 
 
 class ConvBlock(nn.Module):
     """conv (k=3 'same', or transposed with stride 2 doubling S) + LN + ELU."""
 
-    def __init__(self, cin: int, cout: int, samples: int, transpose: bool = False):
+    def __init__(self, cin: int, cout: int, samples: int, transpose: bool = False,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         if transpose:
             self.conv = nn.ConvTranspose1d(cin, cout, 3, stride=2, padding=1,
                                            output_padding=1)
@@ -45,24 +50,24 @@ class ConvBlock(nn.Module):
         self.ln = LayerNormSC(samples, cout)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.elu(self.ln(self.conv(x)))
+        return F.elu(self.ln(conv(self.conv, x, self.dtype)))
 
 
 class RayUnet(nn.Module):
     """[R, S, C] -> [R, S, C] for a fixed S (the LayerNorm shapes depend on
     it) divisible by 8."""
 
-    def __init__(self, in_channels: int, n_samples: int):
+    def __init__(self, in_channels: int, n_samples: int, dtype: torch.dtype = F32):
         super().__init__()
         S, C = n_samples, in_channels
         self.n_samples = S
-        self.conv1 = ConvBlock(C, 64, S)
-        self.conv2 = ConvBlock(64, 128, S // 2)
-        self.conv3 = ConvBlock(128, 128, S // 4)
-        self.trans_conv3 = ConvBlock(128, 128, S // 4, transpose=True)
-        self.trans_conv2 = ConvBlock(256, 64, S // 2, transpose=True)
-        self.trans_conv1 = ConvBlock(128, 32, S, transpose=True)
-        self.conv_out = ConvBlock(C + 32, C, S)
+        self.conv1 = ConvBlock(C, 64, S, dtype=dtype)
+        self.conv2 = ConvBlock(64, 128, S // 2, dtype=dtype)
+        self.conv3 = ConvBlock(128, 128, S // 4, dtype=dtype)
+        self.trans_conv3 = ConvBlock(128, 128, S // 4, transpose=True, dtype=dtype)
+        self.trans_conv2 = ConvBlock(256, 64, S // 2, transpose=True, dtype=dtype)
+        self.trans_conv1 = ConvBlock(128, 32, S, transpose=True, dtype=dtype)
+        self.conv_out = ConvBlock(C + 32, C, S, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         if x.shape[1] != self.n_samples:

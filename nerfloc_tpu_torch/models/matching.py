@@ -1,5 +1,8 @@
 """Coarse sparse-to-dense and fine windowed matching heads and their
-losses (counterpart of nerfloc_tpu/models/matching.py)."""
+losses (counterpart of nerfloc_tpu/models/matching.py). `dtype` is the
+compute dtype (models/lowp.py) of the scoring MLPs and the window
+projection; the fine heat map meets an f32 grid, so the expected
+coordinates are f32."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,29 +11,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .lowp import F32, const, dense
+
 Tensor = torch.Tensor
 
 
 class ScoreMLP(nn.Module):
     """C -> 128 -> 128 -> 1 scoring head."""
 
-    def __init__(self, cin: int):
+    def __init__(self, cin: int, dtype: torch.dtype = F32):
         super().__init__()
         self.fc1 = nn.Linear(cin, 128)
         self.fc2 = nn.Linear(128, 128)
         self.fc3 = nn.Linear(128, 1)
+        self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.fc3(F.relu(self.fc2(F.relu(self.fc1(x)))))[..., 0]
+        dt = self.dtype
+        h = F.relu(dense(self.fc2, F.relu(dense(self.fc1, x, dt)), dt))
+        return dense(self.fc3, h, dt)[..., 0]
 
 
 class S2DMatching(nn.Module):
     """Score logits [N, M] = MLP(desc3d[n] * desc2d[m]), in row tiles so
     the [tile, M, C] product stays bounded."""
 
-    def __init__(self, cin: int, row_tile: int = 128):
+    def __init__(self, cin: int, row_tile: int = 128, dtype: torch.dtype = F32):
         super().__init__()
-        self.mlps = ScoreMLP(cin)
+        self.mlps = ScoreMLP(cin, dtype)
         self.row_tile = row_tile
 
     def forward(self, desc3d: Tensor, desc2d: Tensor) -> Tensor:
@@ -86,26 +94,33 @@ def gather_windows(feat: Tensor, centers: Tensor, window: int
 
 
 class FinePreprocess(nn.Module):
-    def __init__(self, cin: int, out_channels: int):
+    def __init__(self, cin: int, out_channels: int, dtype: torch.dtype = F32):
         super().__init__()
         self.proj = nn.Linear(cin, out_channels)
+        self.dtype = dtype
 
     def forward(self, patches: Tensor) -> Tensor:
-        return self.proj(patches)
+        return dense(self.proj, patches, self.dtype)
 
 
 class FineMatching(nn.Module):
     """Expected window coordinate (x, y in [-1, 1]) and its spread."""
 
-    def __init__(self, cin: int):
+    def __init__(self, cin: int, dtype: torch.dtype = F32):
         super().__init__()
-        self.mlps = ScoreMLP(cin)
+        self.mlps = ScoreMLP(cin, dtype)
 
     def forward(self, feat3d: Tensor, feat2d_win: Tensor) -> Tensor:
         M, WW, C = feat2d_win.shape
         W = int(round(WW ** 0.5))
         sim = self.mlps(feat3d[:, None, :] * feat2d_win)
-        heat = torch.softmax(sim / (C ** 0.5), dim=1)
+        if sim.dtype == F32:
+            heat = torch.softmax(sim / (C ** 0.5), dim=1)
+        else:
+            # bf16 softmax whose division meets the f32 grid (so is f32)
+            s = sim / const(C ** 0.5, sim)
+            e = torch.exp((s - s.amax(dim=1, keepdim=True)).float())
+            heat = e.to(s.dtype).float() / e.sum(dim=1, keepdim=True).to(s.dtype).float()
         lin = torch.linspace(-1.0, 1.0, W, device=heat.device, dtype=heat.dtype)
         gy, gx = torch.meshgrid(lin, lin, indexing="ij")
         grid = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)

@@ -13,6 +13,13 @@ cfg.cascade_matching a second matcher re-matches the keypoints that a first
 pose estimate sees (`match_cascade`); train/step.py's eval step decides
 which pose to keep.
 
+`dtype` is the compute dtype of every submodule (flax's `dtype`;
+configs.compute_dtype_of resolves cfg.compute_dtype as the JAX package's
+CLIs and bench do). Parameters stay f32. At bf16 the query's outputs keep
+the JAX package's dtypes: the score matrix bf16, the keypoints, matches
+and pose f32 (PnP takes f32 inputs). The train and eval steps take f32
+models only, for now.
+
 A training query replaces PnP by the losses: the keypoints projected with
 the ground-truth pose give the coarse targets and the fine windows (for
 the cascade matcher too, over the keypoints the ground-truth pose sees),
@@ -39,6 +46,7 @@ from .backbone import Backbone2D
 from .fields.conditional_nerf import ConditionalNeRF
 from .fields.context import SceneContext
 from .fields.losses import img2mse, mse2psnr, rendering_loss
+from .lowp import F32, dense, sigmoid
 from .matching import (FineMatching, FinePreprocess, S2DMatching, coarse_loss,
                        fine_loss_l2, fine_loss_l2_std, gather_windows,
                        mutual_nearest_matches)
@@ -93,37 +101,42 @@ def to_device_batch(batch: Mapping[str, np.ndarray], device: torch.device
 
 class NerfPoseEstimator(nn.Module):
     """Localization model. `device` defaults to CUDA (raises without a GPU);
-    weights are seeded random unless loaded with weights.load_flax_variables."""
+    weights are seeded random unless loaded with weights.load_flax_variables.
+    `dtype`: the compute dtype (f32, or bf16 as compute_dtype_of(cfg))."""
 
-    def __init__(self, cfg: Config, device: DeviceLike = None, seed: int = 0):
+    def __init__(self, cfg: Config, device: DeviceLike = None, seed: int = 0,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        if dtype not in (F32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype}: the port runs float32 or bfloat16")
         if cfg.simple_3d_model or cfg.keypoints_3d_source != "depth" or \
                 not cfg.encode_appearance:
             raise NotImplementedError(
                 "the port covers the default localization path only "
                 "(no simple 3D model, depth keypoints, appearance FiLM)")
         self.cfg = cfg
+        self.dtype = dtype
         hd, C = cfg.matcher_hidden_dim, cfg.backbone2d_fpn_dim
-        self.backbone2d = Backbone2D(fpn_dim=C, use_fpn=cfg.backbone2d_use_fpn)
+        self.backbone2d = Backbone2D(fpn_dim=C, use_fpn=cfg.backbone2d_use_fpn, dtype=dtype)
         self.proj_layer_2d = nn.Linear(C, hd)
         self.pos_emd_3d = Embedder(hd // 6, include_input=False)
-        self.coarse_transformer = SelfCrossTransformer(hd, 8, 512)
-        self.coarse_matcher = S2DMatching(hd)
-        self.fine_preprocess = FinePreprocess(C, hd)
-        self.fine_transformer = SelfCrossTransformer(hd, 8, 128)
-        self.fine_matcher = FineMatching(hd)
+        self.coarse_transformer = SelfCrossTransformer(hd, 8, 512, dtype)
+        self.coarse_matcher = S2DMatching(hd, dtype=dtype)
+        self.fine_preprocess = FinePreprocess(C, hd, dtype)
+        self.fine_transformer = SelfCrossTransformer(hd, 8, 128, dtype)
+        self.fine_matcher = FineMatching(hd, dtype)
         if cfg.cascade_matching:
             # the cascade pass's own matcher (match(..., second=True))
-            self.coarse_transformer2 = SelfCrossTransformer(hd, 8, 512)
-            self.coarse_matcher2 = S2DMatching(hd)
-            self.fine_preprocess2 = FinePreprocess(C, hd)
-            self.fine_transformer2 = SelfCrossTransformer(hd, 8, 128)
-            self.fine_matcher2 = FineMatching(hd)
-        self.model_3d = ConditionalNeRF(cfg)
-        self.adapt_appearance_coarse = AppearanceAdaptLayer(C)
-        self.adapt_appearance_fine = AppearanceAdaptLayer(C)
+            self.coarse_transformer2 = SelfCrossTransformer(hd, 8, 512, dtype)
+            self.coarse_matcher2 = S2DMatching(hd, dtype=dtype)
+            self.fine_preprocess2 = FinePreprocess(C, hd, dtype)
+            self.fine_transformer2 = SelfCrossTransformer(hd, 8, 128, dtype)
+            self.fine_matcher2 = FineMatching(hd, dtype)
+        self.model_3d = ConditionalNeRF(cfg, dtype)
+        self.adapt_appearance_coarse = AppearanceAdaptLayer(C, dtype=dtype)
+        self.adapt_appearance_fine = AppearanceAdaptLayer(C, dtype=dtype)
         if cfg.train_nerf:
-            self.adapt_appearance_rgb = AppearanceAdaptLayer(3, is_rgb=True)
+            self.adapt_appearance_rgb = AppearanceAdaptLayer(3, is_rgb=True, dtype=dtype)
         init_params(self, seed)
         self.to(resolve_device(device))
         self.eval()
@@ -142,16 +155,26 @@ class NerfPoseEstimator(nn.Module):
                 "stride_fine": Backbone2D.layer_to_stride[cfg.backbone2d_fine_layer_name]}
 
     def build_context(self, batch: Mapping[str, Tensor]):
-        """One backbone pass over [query | support] images, FiLM adaptation
-        of the support maps, then the conditional-NeRF scene context."""
+        """The backbone over the query and support images (one pass over
+        [query | support] when they share a size, else one pass each), FiLM
+        adaptation of the support maps, then the conditional-NeRF scene
+        context."""
         cfg = self.cfg
-        a2d = self.extract_2d(torch.cat([batch["image"][None], batch["topk_images"]]))
-        q2d = {k: (v[:1] if torch.is_tensor(v) else v) for k, v in a2d.items()
-               if k != "feat_pyramid"}
-        feat_coarse_src, feat_fine_src = a2d["feat_coarse"][1:], a2d["feat_fine"][1:]
-        conv1 = a2d["feat_pyramid"]["conv1"]
-        embedding_a = appearance_embedding(conv1[:1])
-        embedding_src = appearance_embedding(conv1[1:])
+        if batch["image"].shape == batch["topk_images"].shape[1:]:
+            a2d = self.extract_2d(torch.cat([batch["image"][None], batch["topk_images"]]))
+            q2d = {k: (v[:1] if torch.is_tensor(v) else v) for k, v in a2d.items()
+                   if k != "feat_pyramid"}
+            feat_coarse_src, feat_fine_src = a2d["feat_coarse"][1:], a2d["feat_fine"][1:]
+            conv1 = a2d["feat_pyramid"]["conv1"]
+            conv1_q, conv1_s = conv1[:1], conv1[1:]
+        else:
+            q = self.extract_2d(batch["image"][None])
+            s = self.extract_2d(batch["topk_images"])
+            q2d = {k: v for k, v in q.items() if k != "feat_pyramid"}
+            feat_coarse_src, feat_fine_src = s["feat_coarse"], s["feat_fine"]
+            conv1_q, conv1_s = q["feat_pyramid"]["conv1"], s["feat_pyramid"]["conv1"]
+        embedding_a = appearance_embedding(conv1_q)
+        embedding_src = appearance_embedding(conv1_s)
         topk_images = batch["topk_images"]
         if cfg.train_nerf:
             topk_images = self.adapt_appearance_rgb(topk_images, embedding_src, embedding_a)
@@ -208,14 +231,16 @@ class NerfPoseEstimator(nn.Module):
         hd = cfg.matcher_hidden_dim
         dev = desc_3d.device
 
-        desc_2d = self.proj_layer_2d(q2d["feat_coarse"][0].reshape(hc * wc, -1))
-        pos_2d = position_embedding_sine(hc, wc, hd // 2, device=dev).reshape(hc * wc, -1)
+        desc_2d = dense(self.proj_layer_2d, q2d["feat_coarse"][0].reshape(hc * wc, -1),
+                        self.dtype)
+        pos_2d = position_embedding_sine(hc, wc, hd // 2, device=dev,
+                                         dtype=desc_2d.dtype).reshape(hc * wc, -1)
         pos_3d = self.pos_emd_3d(pts3d_ndc)
         d3, d2 = coarse_tf(desc_3d[None], pos_3d[None], desc_2d[None], pos_2d[None])
         conf = coarse_m(d3[0], d2[0])
         if kp_mask is not None:
             conf = torch.where(kp_mask[:, None], conf, torch.full_like(conf, -1e9))
-        scores = torch.sigmoid(conf)
+        scores = sigmoid(conf)
         match_j, match_mask = mutual_nearest_matches(scores, cfg.matching.thr)
         if kp_mask is not None:
             match_mask = match_mask & kp_mask
@@ -227,7 +252,7 @@ class NerfPoseEstimator(nn.Module):
         desc_3d_fine = self.model_3d.query_fine(ctx, pts3d)
         patches, _ = gather_windows(q2d["feat_fine"][0], centers, wsz)
         patches = fine_pre(patches)
-        pos_win = position_embedding_sine(wsz, wsz, hd // 2, device=dev)
+        pos_win = position_embedding_sine(wsz, wsz, hd // 2, device=dev, dtype=patches.dtype)
         pos_win = pos_win.reshape(1, wsz * wsz, -1).expand(patches.shape[0], -1, -1)
         f3, f2 = fine_tf(desc_3d_fine[:, None, :], pos_3d[:, None, :], patches, pos_win)
         expec_f = fine_m(f3[:, 0, :], f2)
@@ -288,7 +313,8 @@ class NerfPoseEstimator(nn.Module):
         if kp_gumbel is None:
             kp_gumbel = gumbel_noise((self.n_coarse_points(batch),), generator, dev)
         ctx, q2d, desc_3d, pts3d, pts3d_ndc, m = self.localize_parts(batch, kp_gumbel)
-        pnp = ransac_pnp(m["mkps2d_f"], m["mkps3d"], m["pair_mask"], batch["K"],
+        pnp = ransac_pnp(m["mkps2d_f"].float(), m["mkps3d"].float(), m["pair_mask"],
+                         batch["K"],
                          thresh_px=self.cfg.ransac_thresh,
                          n_hyps=self.cfg.shapes.pnp_hypotheses,
                          gumbel=pnp_gumbel, generator=generator)

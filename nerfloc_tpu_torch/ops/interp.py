@@ -74,7 +74,9 @@ def pack_window(feats: Tensor, offsets) -> Tensor:
 def packed_bilinear_sample_views(packed: Tensor, H: int, W: int,
                                  uv: Tensor) -> Tensor:
     """Sample a pack_bilinear_corners table at [V, N, 2] pixel coords;
-    border/align-corners semantics as bilinear_sample. Returns [V, N, C]."""
+    border/align-corners semantics as bilinear_sample. Returns [V, N, C] in
+    the table's dtype: a bf16 table is blended with f32 weights in f32 and
+    the result rounded to bf16, as the JAX package does."""
     V, N = uv.shape[0], uv.shape[1]
     C = packed.shape[-1] // 4
     u0, v0, du, dv = _corners(uv, H, W)
@@ -84,7 +86,7 @@ def packed_bilinear_sample_views(packed: Tensor, H: int, W: int,
     dv = dv.reshape(-1, 1)
     top = g[:, :C] * (1 - du) + g[:, C:2 * C] * du
     bot = g[:, 2 * C:3 * C] * (1 - du) + g[:, 3 * C:] * du
-    return (top * (1 - dv) + bot * dv).reshape(V, N, C)
+    return (top * (1 - dv) + bot * dv).to(packed.dtype).reshape(V, N, C)
 
 
 def nearest_indices(n_in: int, n_out: int, device=None) -> Tensor:

@@ -44,7 +44,12 @@ def to_numpy(tree):
 
 
 def t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))
+    """numpy (or JAX) array -> tensor of the same dtype; bf16 arrays (which
+    numpy holds as ml_dtypes.bfloat16) become torch.bfloat16."""
+    a = np.array(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class TinySetup:

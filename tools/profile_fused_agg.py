@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the fused-aggregation kernel spends its cycles, phase by phase.
 
-    python3 tools/profile_fused_agg.py [--out FILE.json]
+    python3 tools/profile_fused_agg.py [--bf16] [--out FILE.json]
 
 Builds a copy of nerfloc_tpu_torch/csrc/fused_agg.cu in which consumer
 thread 0 of every CTA records clock64() after each consumer barrier (the
 shipped kernel carries no instrumentation), launches it at the query shapes
 (N=1024 with K=8 and K=1) and at the render shape (N=262144, K=8) for each
 tile size, and prints the median cycles of each phase over the first 512
-CTAs, labelled with the source line the barrier closes. Needs one CUDA card
+CTAs, labelled with the source line the barrier closes. --bf16 profiles
+the bf16 instantiation (mv_agg and nb_feat in bf16). Needs one CUDA card
 and nvcc; prints the card's name and power limit.
 """
 from __future__ import annotations
@@ -83,6 +84,7 @@ def stamped_source() -> tuple[str, list[str]]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bf16", action="store_true", help="the bf16 instantiation")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -105,8 +107,7 @@ def main() -> int:
             return 1
         lib = ctypes.CDLL(so)
     fn = lib.fused_agg_forward
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, i] + [p] * 17 + [i] * 9 + [f, p]
+    fn.argtypes = fa.KERNEL_ARGTYPES
     fn.restype = ctypes.c_int
     fa._kernel_fn = lambda: fn
     dev = torch.device("cuda")
@@ -115,6 +116,8 @@ def main() -> int:
           f"{MAX_CTAS} CTAs")
     for N, K in ((1024, 8), (1024, 1), (cs.RENDER_N, cs.RENDER_K)):
         x = cs.agg_inputs(N, K, 195, 128, seed=K, dev=dev)
+        if args.bf16:
+            x = cs.agg_inputs_bf16(x)
         for rows in [r for r in fa.TILE_ROWS if r >= K]:
             stamps = np.zeros(MAX_CTAS * MAX_STAMPS, np.int64)
             lib.fused_agg_stamps(stamps.ctypes.data, 1)
@@ -128,7 +131,8 @@ def main() -> int:
             delta = np.median(np.diff(st[:, cols], axis=1), axis=0)
             total = float(np.median(st[:, cols[-1]] - st[:, cols[0]]))
             phases = {labels[c]: float(d) for c, d in zip(cols[1:], delta)}
-            results.append({"N": N, "K": K, "rows": rows, "total_cycles": total,
+            results.append({"N": N, "K": K, "rows": rows, "bf16": args.bf16,
+                            "total_cycles": total,
                             "phases": phases, "card": card})
             print(f"\nN={N} K={K} rows={rows}: {total:.0f} cycles")
             for name, d in phases.items():

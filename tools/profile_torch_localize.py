@@ -2,10 +2,11 @@
 """Where the time of one localization query goes, on the GPU, in the
 PyTorch port (nerfloc_tpu_torch).
 
-    python3 tools/profile_torch_localize.py [--views 5] [--out profile.json]
+    python3 tools/profile_torch_localize.py [--views 5] [--dtype bfloat16] [--out profile.json]
 
 Runs localize_forward at full width (default Config with
-render.fused_query_agg=True, 240x320, seeded weights) and reports:
+render.fused_query_agg=True, 240x320, seeded weights; --dtype: the compute
+dtype, float32 by default) and reports:
   * per-stage host-clock times, each stage fenced by torch.cuda.synchronize
     (build_context, query_coarse, match, ransac_pnp);
   * a torch.profiler window over 3 queries: device busy time per query,
@@ -29,6 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--views", type=int, default=5)
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the model's compute dtype")
     ap.add_argument("--out", default="", help="also write the full result as JSON here")
     args = ap.parse_args()
 
@@ -51,7 +54,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     cfg = Config(render=RenderConfig(fused_query_agg=True))
-    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=getattr(torch, args.dtype))
     batch = to_device_batch(device_batch(make_query_batch(
         n_views=args.views, H=240, W=320, seed=0)), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -107,7 +110,7 @@ def main() -> int:
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_prof
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
     result = {
-        "card": card, "views": args.views, "wall_ms_per_query": wall_ms,
+        "card": card, "views": args.views, "dtype": args.dtype, "wall_ms_per_query": wall_ms,
         "device_busy_ms_per_query": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "stage_ms": stage_ms,
@@ -124,7 +127,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    print(f"card: {card}")
+    print(f"card: {card}; compute dtype {args.dtype}")
     print(f"stages (ms, median of 5, synchronized): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
     print(f"profiled: wall {wall_ms:.2f} ms/query, device busy {busy_ms:.2f} ms/query, "

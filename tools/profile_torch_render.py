@@ -2,11 +2,12 @@
 """Where the time of one render_rays call goes, on the GPU, in the PyTorch
 port (nerfloc_tpu_torch).
 
-    python3 tools/profile_torch_render.py [--out profile.json]
+    python3 tools/profile_torch_render.py [--dtype bfloat16] [--out profile.json]
 
 Renders 4096 rays at seeded pixels of the query view against a full-width
 scene context (default Config with render.fused_query_agg=True, V=5 at
-240x320, seeded weights), dense-64 and guided 16+16, and reports for each:
+240x320, seeded weights; --dtype: the compute dtype, float32 by default),
+dense-64 and guided 16+16, and reports for each:
   * per-stage device times inside the real call: CUDA events recorded
     around each stage's function (z values / guided pass, projection,
     knn_proj, aggregator table sampling + visibility decode, neighbour
@@ -33,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402  (RENDER_RAYS, seeded_rays, StageTimer, card_line)
 
 
-def profile_kind(kind, render, batch, rays, n_prof: int = 3):
+def profile_kind(kind, render, batch, rays, dtype, n_prof: int = 3):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -44,7 +45,9 @@ def profile_kind(kind, render, batch, rays, n_prof: int = 3):
     from nerfloc_tpu_torch.ops import fused_agg as fa
 
     torch.cuda.reset_peak_memory_stats()
-    model = NerfPoseEstimator(Config(render=render), device=torch.device("cuda"), seed=0)
+    model = NerfPoseEstimator(Config(render=render), device=torch.device("cuda"), seed=0,
+                              dtype=dtype)
+    counter = fa.LAUNCHES_BF16 if dtype == torch.bfloat16 else fa.LAUNCHES
     nerf = model.model_3d
     with torch.no_grad():
         ctx, _ = model.build_context(batch)
@@ -54,10 +57,10 @@ def profile_kind(kind, render, batch, rays, n_prof: int = 3):
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-        fa.LAUNCHES.n = 0
+        counter.n = 0
         call()
         torch.cuda.synchronize()
-        launches = fa.LAUNCHES.n
+        launches = counter.n
 
         T = cs.StageTimer()
         T.wrap(nerf, "ray_depths", "z values / guided pass")
@@ -124,6 +127,8 @@ def profile_kind(kind, render, batch, rays, n_prof: int = 3):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the model's compute dtype")
     ap.add_argument("--out", default="", help="also write the full result as JSON here")
     args = ap.parse_args()
 
@@ -131,6 +136,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_render: needs a CUDA device", file=sys.stderr)
         return 2
+    dtype = getattr(torch, args.dtype)
     from nerfloc_tpu_torch.configs import RenderConfig
     from nerfloc_tpu_torch.data import device_batch, make_query_batch
     from nerfloc_tpu_torch.models.pose_estimator import to_device_batch
@@ -143,13 +149,13 @@ def main() -> int:
                             dev)
     rays = cs.seeded_rays(batch, cs.RENDER_RAYS, seed=0)
 
-    result = {"card": card, "rays": cs.RENDER_RAYS, "runs": []}
+    result = {"card": card, "rays": cs.RENDER_RAYS, "dtype": args.dtype, "runs": []}
     for kind, render in (("dense", RenderConfig(fused_query_agg=True)),
                          ("guided", RenderConfig(fused_query_agg=True, N_samples=16,
                                                  N_importance=16))):
-        r = profile_kind(kind, render, batch, rays)
+        r = profile_kind(kind, render, batch, rays, dtype)
         result["runs"].append(r)
-        print(f"{kind} ({r['samples']} samples/ray, {cs.RENDER_RAYS} rays; {card}): "
+        print(f"{kind} ({r['samples']} samples/ray, {cs.RENDER_RAYS} rays, {args.dtype}; {card}): "
               f"fused_agg launches/call {r['fused_agg_launches_per_call']}")
         print("  stages (device ms inside one call, median of 5):")
         for k, v in r["stage_ms"].items():
