@@ -72,6 +72,15 @@ Phases (any failure exits non-zero):
      ms/call over 10, the kernel's time inside one call); (e) the bf16
      kernel's times, plain-version times and bound at the bf16 tensor-core
      peak (the second entry of the `kernels` line).
+ 13. the bf16 steps: (a) the tiny bf16 train and eval steps on CUDA
+     against the CPU (small_steps_bf16_vs_cpu); (b) the bf16 kernel and its
+     replayed backward at the train shape (N=65536, K=8) and the
+     refinement shape (N=32768, K=8), with times and bounds; (c)
+     make_train_step at bf16 at full width as in 9c (exactly 3 bf16
+     launches and 0 f32 ones per step); (d) make_eval_step at bf16 at full
+     width as in 11c (exactly 55 bf16 launches per query, 52 in
+     refinement, and 0 f32 ones), eval_dataset and render_psnr_eval; the
+     bf16 and f32 step times side by side.
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result.
@@ -638,10 +647,7 @@ def small_train_vs_cpu(dev):
     for d, perturb in ((cpu, 0), (dev, 0), (cpu, 1), (cpu, 2)):
         m = NerfPoseEstimator(cfg, device=d, seed=3)
         if perturb:
-            g = torch.Generator().manual_seed(perturb)
-            with torch.no_grad():
-                for p in m.parameters():
-                    p.mul_(1 + 2.0 ** -22 * (torch.randint(0, 2, p.shape, generator=g) * 2 - 1))
+            perturb_(m, perturb)
         b = to_device_batch(nb, d)
         kp, idx = train_noise(m, b, seed=11)
         fa.LAUNCHES.n = 0
@@ -729,17 +735,42 @@ def check_fused_agg_train_shape(dev, card: str):
                  "train_bound_f32_ms": f32_ms}
 
 
-def train_full_width(dev, card: str):
-    """Phase 9c: make_train_step at full width. Returns its numbers."""
+def launch_counts():
+    """(f32, bf16) fused_agg launches since the counters were last set to 0."""
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    return fa.LAUNCHES.n, fa.LAUNCHES_BF16.n
+
+
+def zero_launch_counts():
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = 0
+
+
+def expect_launches(n: int, bf16: bool, what: str):
+    """Exactly n launches of the instantiation of the compute dtype since
+    the counters were set to 0, and none of the other."""
+    n32, n16 = launch_counts()
+    got, other = (n16, n32) if bf16 else (n32, n16)
+    if got != n or other != 0:
+        fail(f"{what}: expected {n} {'bf16' if bf16 else 'f32'} fused_agg launches and 0 of "
+             f"the other instantiation, got {got} and {other}")
+    return got
+
+
+def train_full_width(dev, card: str, dtype=None):
+    """Phase 9c (13c at bf16): make_train_step at full width at compute
+    dtype `dtype` (f32 by default). Returns its numbers."""
     import torch
     from nerfloc_tpu_torch.configs import Config, RenderConfig
     from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
     from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
-    from nerfloc_tpu_torch.ops import fused_agg as fa
     from nerfloc_tpu_torch.train.state import TrainState
     from nerfloc_tpu_torch.train.step import make_train_step
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = "bf16 " if bf16 else ""
     cfg = Config(render=RenderConfig(fused_query_agg=True))
-    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=dtype)
     batch = to_device_batch(stack_batches([device_batch(make_query_batch(
         n_views=5, H=240, W=320, seed=0))]), dev)
     state = TrainState(model, cfg)
@@ -757,33 +788,31 @@ def train_full_width(dev, card: str):
         kp, idx = (kp0, idx0) if i == 0 else \
             (v.to(dev) for v in train_noise(model, batch, seed=i))
         torch.cuda.synchronize()
-        fa.LAUNCHES.n = 0
+        zero_launch_counts()
         t0 = time.perf_counter()
         metrics = step(state, batch, kp_gumbel=kp, ray_idx=idx)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches.append(fa.LAUNCHES.n)
+        launches.append(expect_launches(3, bf16, f"{tag}train step {i}"))
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        print(f"train step {i}{' (warm-up)' if i < TRAIN_WARMUP else ''}: loss {loss:.6g} "
+        print(f"{tag}train step {i}{' (warm-up)' if i < TRAIN_WARMUP else ''}: loss {loss:.6g} "
               f"grad_norm {gnorm:.6g} matching_iou {float(metrics['matching_iou']):.4f} "
               f"psnr {float(metrics['psnr']):.3f} fused_agg launches {launches[-1]} "
               f"{ms:.2f} ms")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            fail(f"train step {i}: loss {loss} or grad_norm {gnorm} not finite")
-        if launches[-1] != 3:
-            fail(f"train step {i}: expected 3 fused_agg launches, got {launches[-1]}")
+            fail(f"{tag}train step {i}: loss {loss} or grad_norm {gnorm} not finite")
         losses.append(loss)
         if i >= TRAIN_WARMUP:
             times.append(ms)
     peak = torch.cuda.max_memory_allocated() / 2**30
     loss_after = first_noise_loss()
-    print(f"train: loss at the first step's noise {loss_before:.6g} before, {loss_after:.6g} "
-          f"after {len(losses)} steps")
+    print(f"{tag}train: loss at the first step's noise {loss_before:.6g} before, "
+          f"{loss_after:.6g} after {len(losses)} steps")
     if not loss_after < loss_before:
-        fail(f"train: loss did not fall ({loss_before} -> {loss_after})")
+        fail(f"{tag}train: loss did not fall ({loss_before} -> {loss_after})")
     ms = statistics.median(times)
     V, H, W = batch["topk_images"].shape[1:4]
-    print(f"train step V={V} {H}x{W}, B=1, {cfg.matching.fine_num_3d_keypoints} keypoints, "
+    print(f"{tag}train step V={V} {H}x{W}, B=1, {cfg.matching.fine_num_3d_keypoints} keypoints, "
           f"{cfg.render.N_rand} rays x {cfg.render.N_samples} samples: median "
           f"{ms:.2f} ms/step over {TRAIN_STEPS} (min {min(times):.2f}, max {max(times):.2f}), "
           f"{1e3 / ms:.3f} steps/s; peak memory {peak:.2f} GiB; {card}")
@@ -846,10 +875,7 @@ def small_eval_vs_cpu(dev):
     for d, perturb in ((cpu, 0), (dev, 0), (cpu, 1), (cpu, 2)):
         m = NerfPoseEstimator(cfg, device=d, seed=2)
         if perturb:
-            g = torch.Generator().manual_seed(perturb)
-            with torch.no_grad():
-                for p in m.parameters():
-                    p.mul_(1 + 2.0 ** -22 * (torch.randint(0, 2, p.shape, generator=g) * 2 - 1))
+            perturb_(m, perturb)
         b = to_device_batch(nb, d)
         noise = {k: v.to(d) for k, v in eval_noise(m, b, seed=11).items()}
         fa.LAUNCHES.n = 0
@@ -944,15 +970,15 @@ class EvalProbe:
         timed = getattr(owner, attr)
 
         def run(*a, **kw):
-            from nerfloc_tpu_torch.ops import fused_agg as fa
-            n0 = fa.LAUNCHES.n
+            n0 = launch_counts()
             out = timed(*a, **kw)
             if name == "pnp":
                 self.poses["pnp"].append(out.c2w)
             else:
                 self.poses["refine_in"].append(a[1])
                 self.poses["refine_out"].append(out)
-                self.poses["refine_launches"].append(fa.LAUNCHES.n - n0)
+                self.poses["refine_launches"].append(
+                    tuple(b - a0 for a0, b in zip(n0, launch_counts())))
             return out
         setattr(owner, attr, run)
 
@@ -985,25 +1011,29 @@ def synthetic_items(seeds, H: int, W: int):
     return items
 
 
-def eval_full_width(dev, card: str):
-    """Phase 11c: make_eval_step at full width (default Config with
+def eval_full_width(dev, card: str, dtype=None):
+    """Phase 11c (13d at bf16): make_eval_step at full width at compute
+    dtype `dtype` (f32 by default; default Config with
     render.fused_query_agg=True, cascade_matching=True, optimize_pose=True;
     V=5 at 240x320, seeded weights and noise), one query per step: 2
     warm-up queries and 5 timed ones, the launch counters set to 0 just
-    before each and read just after (exactly EVAL_LAUNCHES); the pose a
-    rotation, the errors finite; the accepted cascade poses and
-    refinements; then eval_dataset over 4 queries of 2 seeds (the last
-    batch padded) and render_psnr_eval over one view. Returns its numbers."""
+    before each and read just after (exactly EVAL_LAUNCHES of the dtype's
+    instantiation, none of the other); the pose a rotation, the errors
+    finite; the accepted cascade poses and refinements; then eval_dataset
+    over 4 queries of 2 seeds (the last batch padded) and render_psnr_eval
+    over one view. Returns its numbers."""
     import torch
     from nerfloc_tpu_torch.data import device_batch, stack_batches
     from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
-    from nerfloc_tpu_torch.ops import fused_agg as fa
     from nerfloc_tpu_torch.train.evaluate import (eval_dataset, make_render_psnr_fn,
                                                   render_psnr_eval)
     from nerfloc_tpu_torch.train.step import make_eval_step
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = "bf16 " if bf16 else ""
     H, W = 240, 320
     cfg = eval_cfg()
-    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=dtype)
     step = make_eval_step(model, cfg)
     items = synthetic_items(range(EVAL_WARMUP + EVAL_QUERIES), H, W)
     probe = EvalProbe(model)
@@ -1015,31 +1045,30 @@ def eval_full_width(dev, card: str):
             batch = to_device_batch(stack_batches([device_batch(it)]), dev)
             noise = {k: v.to(dev) for k, v in eval_noise(model, batch, seed=100 + i).items()}
             torch.cuda.synchronize()
-            fa.LAUNCHES.n = 0
+            zero_launch_counts()
             t0 = time.perf_counter()
             out = step(batch, noise=noise)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            launches.append(fa.LAUNCHES.n)
+            launches.append(expect_launches(EVAL_LAUNCHES, bf16, f"{tag}eval query {i}"))
             stage_ms, pnp1, pnp2, ref_in, ref_out, ref_n = probe.take()
-            refine_launches.append(ref_n[0])
+            refine_launches.append(ref_n[0][1 if bf16 else 0])
             pose = out["pose_pred"][0]
-            check_pose(pose, f"eval query {i}")
+            check_pose(pose, f"{tag}eval query {i}")
             rot, trans = float(out["rot_err_deg"][0]), float(out["trans_err_m"][0])
             if not (math.isfinite(rot) and math.isfinite(trans)):
-                fail(f"eval query {i}: errors not finite ({rot}, {trans})")
-            if launches[-1] != EVAL_LAUNCHES or refine_launches[-1] != REFINE_LAUNCHES:
-                fail(f"eval query {i}: expected {EVAL_LAUNCHES} fused_agg launches, "
-                     f"{REFINE_LAUNCHES} of them in refinement, got {launches[-1]} and "
-                     f"{refine_launches[-1]}")
+                fail(f"{tag}eval query {i}: errors not finite ({rot}, {trans})")
+            if refine_launches[-1] != REFINE_LAUNCHES:
+                fail(f"{tag}eval query {i}: expected {REFINE_LAUNCHES} fused_agg launches in "
+                     f"refinement, got {refine_launches[-1]}")
             if not torch.equal(ref_out[0], pose):
-                fail(f"eval query {i}: pose_pred is not the refinement's result")
+                fail(f"{tag}eval query {i}: pose_pred is not the refinement's result")
             used_cascade = torch.equal(ref_in[0], pnp2[0]) and not torch.equal(pnp2[0], pnp1[0])
             refined = not torch.equal(ref_out[0], ref_in[0])
             accepted["cascade"] += used_cascade
             accepted["refinement"] += refined
             warm = i < EVAL_WARMUP
-            print(f"eval query {i}{' (warm-up)' if warm else ''}: rot_err {rot:.4g} deg "
+            print(f"{tag}eval query {i}{' (warm-up)' if warm else ''}: rot_err {rot:.4g} deg "
                   f"trans_err {trans:.4g} m inliers {int(out['num_inliers'][0])} matches "
                   f"{int(out['num_matches'][0])} matching_iou "
                   f"{float(out['matching_iou'][0]):.4f} cascade pose "
@@ -1056,7 +1085,7 @@ def eval_full_width(dev, card: str):
         probe.restore()
     ms = statistics.median(times)
     part_ms = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
-    print(f"eval step V=5 {H}x{W}, cascade + refinement ({cfg.shapes.pose_refine_rays} rays "
+    print(f"{tag}eval step V=5 {H}x{W}, cascade + refinement ({cfg.shapes.pose_refine_rays} rays "
           f"x {cfg.render.N_samples} samples, 50 Adam steps): median {ms:.2f} ms/query over "
           f"{len(times)} after {EVAL_WARMUP} warm-up queries (min {min(times):.2f}, max "
           f"{max(times):.2f}); device ms by stage (median): " + ", ".join(
@@ -1068,16 +1097,16 @@ def eval_full_width(dev, card: str):
     table_items = synthetic_items((0, 1, 0, 1), H, W)
     res = eval_dataset(table_items, step, 3, {0: "scene0", 1: "scene1"}, cfg, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(0))
-    print(f"eval_dataset over 4 queries of 2 seeds (batches of 3): {json.dumps(res)}")
+    print(f"{tag}eval_dataset over 4 queries of 2 seeds (batches of 3): {json.dumps(res)}")
     for name, row in res.items():
         if not all(math.isfinite(v) for v in row.values()) or not 0 <= row["pose_acc"] <= 1:
-            fail(f"eval_dataset row {name} malformed: {row}")
+            fail(f"{tag}eval_dataset row {name} malformed: {row}")
     if res["avg"]["n"] != 4 or res["avg"]["files"] != 4:
-        fail(f"eval_dataset counted {res['avg']['n']} queries, expected 4")
+        fail(f"{tag}eval_dataset counted {res['avg']['n']} queries, expected 4")
     psnr = render_psnr_eval(make_render_psnr_fn(model), table_items, max_views=1)
-    print(f"render_psnr_eval over one {H}x{W} view: {psnr}")
+    print(f"{tag}render_psnr_eval over one {H}x{W} view: {psnr}")
     if psnr.get("n_rendered") != 1 or not math.isfinite(psnr.get("psnr_test", math.nan)):
-        fail(f"render_psnr_eval malformed: {psnr}")
+        fail(f"{tag}render_psnr_eval malformed: {psnr}")
     del model, step
     torch.cuda.empty_cache()
     return {"eval_ms_per_query": ms, "eval_part_ms": part_ms,
@@ -1151,10 +1180,10 @@ def bf16_full_width(dev, card: str):
     for _ in range(2):
         model.localize_forward(batch, generator=gen)
     torch.cuda.synchronize()
-    fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = 0
+    zero_launch_counts()
     out = model.localize_forward(batch, generator=gen)
     torch.cuda.synchronize()
-    n16, n32 = fa.LAUNCHES_BF16.n, fa.LAUNCHES.n
+    n32, n16 = launch_counts()
     print(f"bf16 main path ({dt}): fused_agg launches per query bf16 = {n16}, f32 = {n32}")
     if n16 != 2 or n32 != 0:
         fail(f"expected 2 bf16 and 0 f32 fused_agg launches per bf16 query, got {n16} and {n32}")
@@ -1191,10 +1220,10 @@ def bf16_full_width(dev, card: str):
             for _ in range(2):
                 call()
             torch.cuda.synchronize()
-            fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = 0
+            zero_launch_counts()
             rout = call()
             torch.cuda.synchronize()
-            n16, n32 = fa.LAUNCHES_BF16.n, fa.LAUNCHES.n
+            n32, n16 = launch_counts()
             print(f"bf16 render {kind}: fused_agg launches per render_rays call bf16 = {n16}, "
                   f"f32 = {n32}")
             if n16 != 1 or n32 != 0:
@@ -1227,6 +1256,248 @@ def bf16_full_width(dev, card: str):
         del model, nerf, ctx, rout
         torch.cuda.empty_cache()
     return res
+
+
+def perturb_(model, seed: int) -> None:
+    """Every weight moved by one f32 rounding (2^-22 relative), the signs
+    drawn from `seed`."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 2.0 ** -22 * (torch.randint(0, 2, p.shape, generator=g) * 2 - 1).to(p.device))
+
+
+def within_bf16_spread(name: str, gpu, cpu, cpu32, spreads, worst: list) -> bool:
+    """CUDA bf16 against CPU bf16, the CPU's f32 beside them. Holds when
+    rms(cuda - cpu) <= sqrt(rms(cpu - cpu32)^2 + the spreads^2): the CPU's
+    own bf16-vs-f32 distance with the spread of each side under a 2^-22
+    weight change added in quadrature (a bf16 result moves by up to a whole
+    bf16 step when an f32 sum upstream ends in another last bit; where that
+    moves a discrete choice downstream the spread is as large as the
+    bf16-vs-f32 distance itself); or when the CUDA result is that close to
+    the CPU's f32 result: the CPU sums the cotangent of a bf16 broadcast (a
+    bias, normalization statistics) in bf16 as XLA's CPU backend does, the
+    card in f32, so on such gradients the card's bf16 sits nearer f32."""
+    d, ref = rms(gpu - cpu), rms(cpu - cpu32)
+    bound = math.sqrt(ref ** 2 + sum(s ** 2 for s in spreads))
+    d32 = rms(gpu - cpu32)
+    worst.append((min(d, d32) / bound if bound else (0.0 if min(d, d32) == 0 else math.inf),
+                  d / ref if ref else 0.0, name))
+    return min(d, d32) <= bound
+
+
+def small_steps_bf16_vs_cpu(dev):
+    """Phase 13a: the tiny bf16 train step (B=1) and the tiny bf16 eval
+    step (cascade and refinement on, 128 refinement rays, two queries) on
+    CUDA (the bf16 kernel) against the same steps on the CPU (the plain
+    versions), same weights and noise, and the CPU's f32 steps beside them:
+    the loss, its terms and every gradient leaf, the poses and errors
+    within_bf16_spread (ref_depth_loss also moves by
+    1/#pixels for each decoded mean that rounds to the other side of the
+    decoded depth's jump at d_inv == 0, counted here); at least half of the
+    discrete eval outputs equal to the CPU's (PnP success all of them);
+    the launches (3 per train step, 2 x 55 per eval step) all of the bf16
+    instantiation. Returns the CUDA train step's launches."""
+    import torch
+    from nerfloc_tpu_torch.configs import StaticShapeConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.train.state import TrainState
+    from nerfloc_tpu_torch.train.step import make_eval_step, make_train_step
+    cpu, bf = torch.device("cpu"), torch.bfloat16
+    runs = (("cpu32", cpu, torch.float32, 0), ("cpu", cpu, bf, 0), ("cuda", dev, bf, 0),
+            ("cpu+", cpu, bf, 1), ("cuda+", dev, bf, 1))
+
+    # the train step
+    cfg = tiny_cfg()
+    nb = stack_batches([device_batch(make_query_batch(n_views=3, H=32, W=32, seed=0))])
+    T = {}
+    for name, d, dt, perturb in runs:
+        m = NerfPoseEstimator(cfg, device=d, seed=3, dtype=dt)
+        if perturb:
+            perturb_(m, perturb)
+        b = to_device_batch(nb, d)
+        kp, idx = train_noise(m, b, seed=11)
+        with torch.no_grad():
+            ctx, _ = m.build_context({k: v[0] for k, v in b.items()})
+            agg = m.model_3d.multiview_aggregator
+            mean = agg.dist_decoder.predict_mean(ctx.sv.vis_featmaps)[..., 0].float().cpu()
+        zero_launch_counts()
+        metrics = make_train_step(m, cfg)(TrainState(m, cfg), b, kp_gumbel=kp.to(d),
+                                          ray_idx=idx.to(d))
+        counts = launch_counts()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+                 for n, p in m.named_parameters()}
+        T[name] = ({k: v.double().cpu() for k, v in metrics.items()}, grads, counts, mean,
+                   (float(b["near"]), float(b["far"])))
+        del m, ctx
+    if T["cuda"][2] != (0, 3):
+        fail(f"small bf16 train: expected 3 bf16 and 0 f32 fused_agg launches, got "
+             f"{T['cuda'][2][1]} and {T['cuda'][2][0]}")
+    near, far = T["cpu"][4]
+    x0 = (1.0 / near) / ((-1.0 / far) + 1.0 / near)
+    jumps = int(((T["cuda"][3] > x0) != (T["cpu"][3] > x0)).sum())
+    worst, bad = [], []
+    for k in ("loss", "coarse_loss", "fine_loss", "ref_depth_loss", "render_loss", "grad_norm"):
+        v = {n: T[n][0][k] for n in T}
+        extra = jumps / T["cpu"][3].numel() if k == "ref_depth_loss" else 0.0
+        ok = within_bf16_spread(k, v["cuda"], v["cpu"], v["cpu32"],
+                                (rms(v["cpu+"] - v["cpu"]), rms(v["cuda+"] - v["cuda"]), extra),
+                                worst)
+        print(f"small bf16 train {k}: cuda {float(v['cuda']):.6g} cpu {float(v['cpu']):.6g} "
+              f"cpu f32 {float(v['cpu32']):.6g} (ratio to the bound {worst[-1][0]:.3f}"
+              f"{f'; {jumps} decoded means across the jump' if extra else ''})")
+        if not ok:
+            bad.append(k)
+    leaves = []
+    for n in T["cpu"][1]:
+        g = {r: T[r][1][n] for r in T}
+        if not within_bf16_spread(n, g["cuda"], g["cpu"], g["cpu32"],
+                                  (rms(g["cpu+"] - g["cpu"]), rms(g["cuda+"] - g["cuda"])),
+                                  leaves):
+            bad.append(n)
+    leaves.sort(reverse=True)
+    # really bf16: over all leaves the card's gradient is as far from the
+    # CPU's f32 one as half the CPU's bf16 one is (a path that lost its
+    # bf16 rounding would sit on f32)
+    far = {r: sum(float((T[r][1][n] - g).norm()) ** 2 for n, g in T["cpu32"][1].items()) ** 0.5
+           for r in ("cuda", "cpu")}
+    print(f"small bf16 train gradients: {len(leaves)} leaves; worst (ratio to the bound, the "
+          f"distance from the CPU's bf16 over its bf16-vs-f32 distance): " + ", ".join(
+              f"{n} {a:.3f} {b:.3f}" for a, b, n in leaves[:5])
+          + f"; all leaves: distance from the CPU's f32 cuda {far['cuda']:.4g}, cpu bf16 "
+          f"{far['cpu']:.4g}")
+    if not far["cuda"] >= 0.5 * far["cpu"]:
+        bad.append("the gradient sits on f32 (not bf16)")
+    if bad:
+        fail("small bf16 train differs between CUDA and CPU beyond the bf16 spread: "
+             + ", ".join(bad))
+
+    # the eval step
+    cfg = eval_cfg(base=tiny_cfg(), shapes=StaticShapeConfig(pose_refine_rays=128))
+    nb = stack_batches([device_batch(make_query_batch(n_views=3, H=32, W=32, seed=s))
+                        for s in (0, 1)])
+    E = {}
+    for name, d, dt, perturb in runs:
+        m = NerfPoseEstimator(cfg, device=d, seed=2, dtype=dt)
+        if perturb:
+            perturb_(m, perturb)
+        b = to_device_batch(nb, d)
+        noise = {k: v.to(d) for k, v in eval_noise(m, b, seed=11).items()}
+        zero_launch_counts()
+        out = make_eval_step(m, cfg)(b, noise=noise)
+        E[name] = ({k: v.cpu() for k, v in out.items()}, launch_counts())
+        del m
+    if E["cuda"][1] != (0, 2 * EVAL_LAUNCHES):
+        fail(f"small bf16 eval: expected {2 * EVAL_LAUNCHES} bf16 and 0 f32 fused_agg "
+             f"launches, got {E['cuda'][1][1]} and {E['cuda'][1][0]}")
+    # the counts come from mutual nearest matches over the bf16 scores of a
+    # tiny random model (4-6 matches per query), where one flipped match
+    # moves a count: JAX's own bf16 eval step keeps half of these outputs
+    # under a 2^-22 weight change (tests/test_torch_bf16_eval.py), so at
+    # least half must be equal here, and PnP success all of them
+    keys = ("num_inliers", "num_matches", "pnp_success", "matching_iou")
+    same = sum(int((E["cuda"][0][k] == E["cpu"][0][k]).sum()) for k in keys)
+    self_same = sum(int((E[r + "+"][0][k] == E[r][0][k]).sum()) for k in keys
+                    for r in ("cpu", "cuda"))
+    total = sum(E["cpu"][0][k].numel() for k in keys)
+    print(f"small bf16 eval discrete outputs: {same} of {total} equal to the CPU's (under a "
+          f"2^-22 weight change each device keeps {self_same} of {2 * total} of its own)")
+    if 2 * same < total or not torch.equal(E["cuda"][0]["pnp_success"],
+                                            E["cpu"][0]["pnp_success"]):
+        fail(f"small bf16 eval: {same} of {total} discrete outputs equal to the CPU's, fewer "
+             f"than half, or PnP success differs")
+    worst = []
+    for k in ("pose_pred", "rot_err_deg", "trans_err_m"):
+        v = {n: E[n][0][k].double() for n in E}
+        ok = within_bf16_spread(k, v["cuda"], v["cpu"], v["cpu32"],
+                                (rms(v["cpu+"] - v["cpu"]), rms(v["cuda+"] - v["cuda"])), worst)
+        print(f"small bf16 eval {k}: cuda vs cpu rms {rms(v['cuda'] - v['cpu']):.3g}, cpu bf16 "
+              f"vs f32 {rms(v['cpu'] - v['cpu32']):.3g}, spreads cpu "
+              f"{rms(v['cpu+'] - v['cpu']):.3g} cuda {rms(v['cuda+'] - v['cuda']):.3g} (ratio to "
+              f"the bound {worst[-1][0]:.3f})")
+        if not ok:
+            fail(f"small bf16 eval {k} differs between CUDA and CPU beyond the bf16 spread")
+    check_pose(E["cuda"][0]["pose_pred"][0].to(dev), "small bf16 eval")
+    return T["cuda"][2][1]
+
+
+def check_fused_agg_bf16_steps(dev, card: str):
+    """Phase 13b: the bf16 instantiation at the train shape (N=65536, K=8)
+    and the refinement shape (N=32768, K=8) against kernel_agg, within
+    BF16_TOL (RMS) and BF16_TOL_MAX (max) of the plain version's own
+    bf16-vs-f32 distance; the replayed backward (reference_agg at bf16)
+    equal to autograd through reference_agg at bf16 in what each step
+    differentiates (train: mv_agg, nb_feat and every weight; refinement:
+    xyz, direction, mv_agg); the kernel's, the plain version's and the
+    replayed backward's device times and the bound at the bf16 tensor-core
+    peak. Returns (max abs error, times)."""
+    import torch
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    bf = torch.bfloat16
+    worst, times = 0.0, {}
+    order = ("xyz", "direction", "mv_agg", "nb_xyz", "nb_dir", "nb_feat", "scale", "freqs")
+    for tag, N, seed, keys in (("train", TRAIN_N, 9, ("mv_agg", "nb_feat")),
+                               ("refine", REFINE_N, 13, ("xyz", "direction", "mv_agg"))):
+        x = agg_inputs(N, RENDER_K, 195, 128, seed=seed, dev=dev)
+        xb = agg_inputs_bf16(x)
+        with torch.no_grad():
+            out = fa.launch(**xb)
+            ref = fa.kernel_agg(**xb)
+            ref32 = fa.reference_agg(**x)
+        torch.cuda.synchronize()
+        yard_rms, yard_max = rms(ref - ref32), float((ref - ref32).abs().max())
+        e_rms, e_max = rms(out - ref), float((out - ref).abs().max())
+        worst = max(worst, e_max)
+        print(f"fused_agg bf16 {tag} shape N={N} K={RENDER_K} "
+              f"({fa.tile_plan(N, RENDER_K, fa._sm_count(dev))[0]}-row tiles): vs plain rms "
+              f"{e_rms:.3g} max {e_max:.3g}; plain bf16 vs f32 rms {yard_rms:.3g} max "
+              f"{yard_max:.3g} (tol rms <= {BF16_TOL} x, max <= {BF16_TOL_MAX} x)")
+        if not (bool(torch.isfinite(out).all()) and e_rms <= BF16_TOL * yard_rms
+                and e_max <= BF16_TOL_MAX * yard_max):
+            fail(f"fused_agg bf16 disagrees with kernel_agg at the {tag} shape")
+        del out, ref, ref32
+        cot = torch.randn(N, 128, generator=torch.Generator().manual_seed(seed)).to(dev)
+        wkeys = fa.PARAM_KEYS if tag == "train" else ()
+        grads = []
+        for use_kernel in (True, False):
+            leaves = {k: xb[k].clone().requires_grad_(True) for k in keys}
+            p = {k: v.clone().requires_grad_(k in wkeys) for k, v in xb["params"].items()}
+            args = {**xb, **leaves, "params": p}
+            o = (fa._FusedAgg.apply(*[args[k] for k in order], *[p[k] for k in fa.PARAM_KEYS])
+                 if use_kernel else fa.reference_agg(**args, dtype=bf))
+            g = torch.autograd.grad(o, list(leaves.values()) + [p[k] for k in wkeys], cot)
+            grads.append(g)
+            del o, leaves, p, args
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            fail(f"fused_agg bf16 replayed backward differs from autograd through "
+                 f"reference_agg(bf16) at the {tag} shape")
+        del grads
+
+        def backward():
+            leaves = {k: xb[k].clone().requires_grad_(True) for k in keys}
+            p = {k: v.clone().requires_grad_(k in wkeys) for k, v in xb["params"].items()}
+            o = fa.reference_agg(**{**xb, **leaves, "params": p}, dtype=bf)
+            torch.autograd.grad(o, list(leaves.values()) + [p[k] for k in wkeys], cot)
+        with torch.no_grad():
+            k_ms = device_ms(lambda: fa.launch(**xb), iters=10)
+            p_ms = device_ms(lambda: fa.kernel_agg(**xb), iters=3)
+        b_ms_replay = device_ms(backward, iters=3)
+        cost = agg_cost(N, RENDER_K, 195, 128, xb["params"], xb["freqs"], 2)
+        f32_ms, b_ms, unit = agg_bounds(cost, "bf16")
+        if k_ms < b_ms:
+            fail(f"fused_agg bf16 at the {tag} shape reads faster than its bound ({k_ms} < {b_ms})")
+        print(f"fused_agg bf16 {tag} shape N={N} K={RENDER_K}: replayed backward equal to "
+              f"autograd through reference_agg(bf16) in {', '.join(keys)}"
+              f"{' and the weights' if wkeys else ''}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} ({100 * b_ms / k_ms:.1f} %); "
+              f"replayed backward {b_ms_replay:.4f} ms; {card}")
+        times.update({f"{tag}_ms": k_ms, f"{tag}_plain_ms": p_ms, f"{tag}_bound_ms": b_ms,
+                      f"{tag}_backward_replay_ms": b_ms_replay})
+        del x, xb, cot
+        torch.cuda.empty_cache()
+    return worst, times
 
 
 def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
@@ -1406,6 +1677,16 @@ def main() -> int:
     evals = eval_full_width(dev, card)
     small_paths_bf16_vs_cpu(dev)
     bf16 = bf16_full_width(dev, card)
+    small_steps_bf16_vs_cpu(dev)
+    steps_err, steps_agg = check_fused_agg_bf16_steps(dev, card)
+    max_err_bf16 = max(max_err_bf16, steps_err)
+    train16 = train_full_width(dev, card, torch.bfloat16)
+    evals16 = eval_full_width(dev, card, torch.bfloat16)
+    print(f"train step, full width: f32 {train['train_ms_per_step']:.2f} ms/step (peak "
+          f"{train['train_peak_gib']:.2f} GiB), bf16 {train16['train_ms_per_step']:.2f} ms/step "
+          f"(peak {train16['train_peak_gib']:.2f} GiB); eval query: f32 "
+          f"{evals['eval_ms_per_query']:.2f} ms, bf16 {evals16['eval_ms_per_query']:.2f} ms; "
+          f"{card}")
 
     kernels = [{**time_fused_agg(model, cfg, dev, launches, max_err, card),
                 "render_launches_per_call": render["render_launches_per_call"],
@@ -1417,7 +1698,11 @@ def main() -> int:
                {**time_fused_agg(model, cfg, dev, bf16["launches"], max_err_bf16, card,
                                  bf16=True),
                 "render_launches_per_call": bf16["render_launches_per_call"],
-                "render_kernel_ms_in_call": bf16["render_kernel_ms_in_call"]}]
+                "render_kernel_ms_in_call": bf16["render_kernel_ms_in_call"],
+                "train_launches_per_step": train16["train_launches_per_step"],
+                "eval_launches_per_query": evals16["eval_launches_per_query"],
+                "refine_launches_per_query": evals16["refine_launches_per_query"],
+                **steps_agg}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.interp import (bilinear_sample_views, nearest_indices,
+from ...ops.interp import (bilinear_sample_views, bilinear_sample_views_map_grad, nearest_indices,
                            packed_bilinear_sample_views)
 from ..lowp import F32, const, dense
 from . import neuray
@@ -162,7 +162,7 @@ class MultiviewFeatureAggregator(nn.Module):
                 fused = packed_bilinear_sample_views(fused_packed, h, w, uv_f)
             else:
                 rgb = bilinear_sample_views(sv.images, proj.uv)
-                fused = bilinear_sample_views(
+                fused = bilinear_sample_views_map_grad(
                     torch.cat([featmaps, sv.vis_featmaps], dim=-1), uv_f)
             feat, ray_feats = fused[..., :C], fused[..., C:]
             valid = _rf_valid(proj, H, W)

@@ -37,7 +37,7 @@ from ...geometry.math import safe_normalize, safe_sqrt
 from ...ops.fused_agg import extract_agg_params, fused_neighbor_agg
 from ...ops.interp import pack_bilinear_corners, resize_nearest
 from ...ops.knn import knn, knn_gather, knn_proj, pack_xyz_window, topk_first
-from ..lowp import F32, dense, leaky_relu, sigmoid, softmax, softplus
+from ..lowp import F32, add_bias, dense, leaky_relu, sigmoid, softmax, softplus
 from ..transformer import MultiHeadAttention
 from .aggregator import MultiviewFeatureAggregator, SupportViews
 from .context import NeuralPoints, SceneContext
@@ -383,7 +383,7 @@ class ConditionalNeRF(nn.Module):
             h = h + mv_feat @ k_mv.T + mv_vis * k_vis[:, 0] + ray_diff @ k_rd.T
         else:
             # the partial sums in bf16, each product and sum rounded
-            h = (feature_agg.to(dt) @ k_fa.T + fc.fc0.bias.to(dt))[:, None, :]
+            h = add_bias(feature_agg.to(dt) @ k_fa.T, fc.fc0.bias)[:, None, :]
             h = h + mv_feat.to(dt) @ k_mv.T
             h = h + mv_vis.to(dt) * k_vis[:, 0]
             h = h + ray_diff.to(dt) @ k_rd.T

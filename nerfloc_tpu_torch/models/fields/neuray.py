@@ -278,11 +278,14 @@ class MixtureLogisticsDistDecoder(nn.Module):
         return mean, var, vis, aw
 
     def predict_mean(self, feats: Tensor) -> Tensor:
-        return softplus(self.mean_decoder(feats), f32_out=True)
+        return softplus(self.mean_decoder(feats))
 
 
 def decode_ref_depths(mean: Tensor, near: Tensor, far: Tensor) -> Tensor:
-    return from_inverse_normalized_depth(mean[..., 0], near, far)
+    """First mixture mean -> metric depth; a bf16 mean meets the f32 near
+    and far, so the decode runs in f32 (torch would keep a 0-d f32 tensor
+    from promoting it)."""
+    return from_inverse_normalized_depth(mean[..., 0].float(), near, far)
 
 
 def compute_visibility(depth: Tensor, mean: Tensor, var: Tensor, vis: Tensor,

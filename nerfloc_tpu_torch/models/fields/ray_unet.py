@@ -31,7 +31,8 @@ class LayerNormSC(nn.Module):
         self.bias = nn.Parameter(torch.zeros(samples, channels))
 
     def forward(self, x: Tensor) -> Tensor:
-        y = normalize(x, (-2, -1), 1e-5, f32_out=True)
+        # JAX's layout is [R, S, C]: S is the outer reduced axis
+        y = normalize(x, (-2, -1), 1e-5, f32_out=True, order=(2, 1))
         return y * self.scale.T + self.bias.T
 
 

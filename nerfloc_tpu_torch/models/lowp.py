@@ -15,6 +15,11 @@ Where rounding happens follows XLA's, which runs the JAX graph:
 - A Python scalar meets a bf16 operand rounded to bf16 (JAX's weak types).
 `torch.autocast` rounds elsewhere and keeps f32 where flax runs bf16, so
 the port does not use it.
+
+Backward, XLA rounds every step of the transposed graph, and a bf16 array
+broadcast in the forward (a bias over rows, normalization statistics over
+a map) transposes to a bf16 reduction, which XLA's CPU backend
+accumulates in bf16 in windows of 32 (`bcast`, `add_bias`).
 """
 from __future__ import annotations
 
@@ -34,13 +39,98 @@ def const(v: float, like: Tensor):
     return v if like.dtype == F32 else torch.tensor(v, dtype=like.dtype)
 
 
+XLA_WINDOW = 32    # XLA's CPU tree-reduction window
+
+
+def _bf16_sequential_sum(x: Tensor, dims) -> Tensor:
+    """x summed over dims one element at a time in row-major order, each
+    partial sum rounded to x's dtype."""
+    keep = [d for d in range(x.dim()) if d not in dims]
+    flat = x.permute(keep + list(dims)).reshape([x.shape[d] for d in keep] + [-1])
+    acc = torch.zeros(flat.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(flat.shape[-1]):
+        acc = acc + flat[..., i]
+    return acc
+
+
+def xla_cpu_sum(x: Tensor, dims) -> Tensor:
+    """reduce_sum of a bf16 tensor over dims as XLA's CPU backend computes
+    it: where a reduced axis is longer than 32, every reduced axis is
+    zero-padded to a multiple of 32 (half the padding in front) and summed
+    window by window (32 along each reduced axis), then the window sums are
+    reduced the same way; each sum accumulates in bf16, row-major."""
+    dims = sorted(d % x.dim() for d in dims)
+    if all(x.shape[d] <= XLA_WINDOW for d in dims):
+        return _bf16_sequential_sum(x, dims)
+    pad = []
+    for d in reversed(range(x.dim())):
+        p = -x.shape[d] % XLA_WINDOW if d in dims else 0
+        pad += [p // 2, p - p // 2]
+    x = F.pad(x, pad)
+    shape, win, outer = [], [], []
+    for d in range(x.dim()):
+        if d in dims:
+            outer.append(len(shape) - len(win))
+            shape += [x.shape[d] // XLA_WINDOW, XLA_WINDOW]
+            win.append(len(shape) - 1)
+        else:
+            shape.append(x.shape[d])
+    return xla_cpu_sum(_bf16_sequential_sum(x.reshape(shape), win), outer)
+
+
+def lowp_sum(g: Tensor, dims) -> Tensor:
+    """The bf16 reduction of a transposed broadcast: on a CPU tensor XLA's
+    CPU reduction with the reduced axes taken in the order `dims` (the JAX
+    layout's row-major order), as jax.grad computes it; on the card g
+    summed in f32 and rounded once (the windowed bf16 sum would cost a
+    launch per window element)."""
+    dims = [d % g.dim() for d in dims]
+    if g.device.type != "cpu":
+        return g.float().sum(dims).to(g.dtype)
+    keep = [d for d in range(g.dim()) if d not in dims]
+    return xla_cpu_sum(g.permute(keep + dims), list(range(len(keep), g.dim())))
+
+
+class _Broadcast(torch.autograd.Function):
+    """x (keepdim shape) expanded to `shape`; backward the lowp_sum of the
+    cotangent over the expanded axes, in the order `order`."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, shape, order):
+        ctx.order, ctx.shape = order, x.shape
+        return x.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return lowp_sum(g, ctx.order).reshape(ctx.shape), None, None
+
+
+def bcast(x: Tensor, shape, order=None) -> Tensor:
+    """x broadcast to `shape` as a bf16 array is in JAX: its gradient is the
+    cotangent reduced over the broadcast axes (lowp_sum; `order`: those axes
+    in JAX's row-major order, by default ascending). At f32 a plain expand."""
+    if x.dtype == F32:
+        return x.expand(shape)
+    if order is None:
+        order = [d for d in range(len(shape)) if x.shape[d] == 1 and shape[d] != 1]
+    return _Broadcast.apply(x, tuple(shape), list(order))
+
+
+def add_bias(y: Tensor, b: Tensor, cdim: int = -1) -> Tensor:
+    """y + b.to(y.dtype) with b [C] along axis cdim of y; below f32 the bias
+    is broadcast with bcast, rows in channels-last order (JAX's layout)."""
+    cdim = cdim % y.dim()
+    b = b.to(y.dtype).reshape([-1 if d == cdim else 1 for d in range(y.dim())])
+    return y + bcast(b, y.shape, [d for d in range(y.dim()) if d != cdim])
+
+
 def dense(lin: nn.Linear, x: Tensor, dtype: torch.dtype) -> Tensor:
     """flax Dense(dtype=dtype) with lin's weights: x and the kernel cast to
     dtype, the product rounded to dtype, then the bias added in dtype."""
     if dtype == F32:
         return lin(x)
     y = x.to(dtype) @ lin.weight.to(dtype).t()
-    return y if lin.bias is None else y + lin.bias.to(dtype)
+    return y if lin.bias is None else add_bias(y, lin.bias)
 
 
 def conv(mod: nn.Module, x: Tensor, dtype: torch.dtype) -> Tensor:
@@ -58,9 +148,7 @@ def conv(mod: nn.Module, x: Tensor, dtype: torch.dtype) -> Tensor:
         y = F.conv1d(x, w, None, mod.stride, mod.padding, mod.dilation, mod.groups)
     else:
         y = F.conv2d(x, w, None, mod.stride, mod.padding, mod.dilation, mod.groups)
-    if mod.bias is None:
-        return y
-    return y + mod.bias.to(dtype).reshape((-1,) + (1,) * (y.dim() - 2))
+    return y if mod.bias is None else add_bias(y, mod.bias, 1)
 
 
 def leaky_relu(x: Tensor, slope: float = 0.01) -> Tensor:
@@ -89,14 +177,37 @@ def softplus(x: Tensor, f32_out: bool = False) -> Tensor:
     return m.float() + l.float() if f32_out else m + l
 
 
-def softmax(x: Tensor, dim: int) -> Tensor:
+class _SoftmaxLowp(torch.autograd.Function):
+    """Below f32: forward as XLA computes jax.nn.softmax (softmax's
+    docstring); backward as it transposes the custom JVP y (t - sum(y t)):
+    each product rounded, the sum's broadcast reduced in bf16 (lowp_sum)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, dim: int, f32_out: bool) -> Tensor:
+        dt = x.dtype
+        e = torch.exp((x - x.amax(dim=dim, keepdim=True)).float())
+        num, den = e.to(dt), e.sum(dim=dim, keepdim=True).to(dt)
+        y = num / den
+        ctx.save_for_backward(y)
+        ctx.dim = dim
+        return num.float() / den.float() if f32_out else y
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        y, = ctx.saved_tensors
+        ct_b = y * g.to(y.dtype)
+        ct_s = lowp_sum(-ct_b, [ctx.dim]).unsqueeze(ctx.dim)
+        return ct_b + y * ct_s, None, None
+
+
+def softmax(x: Tensor, dim: int, f32_out: bool = False) -> Tensor:
     """jax.nn.softmax at x's dtype: below f32, exp(x - max) is rounded for
     the numerator and summed unrounded in f32 for the denominator, which is
-    rounded before the division."""
+    rounded before the division; f32_out: the division in f32 (the result
+    meets an f32 operand)."""
     if x.dtype == F32:
         return torch.softmax(x, dim=dim)
-    e = torch.exp((x - x.amax(dim=dim, keepdim=True)).float())
-    return e.to(x.dtype) / e.sum(dim=dim, keepdim=True).to(x.dtype)
+    return _SoftmaxLowp.apply(x, dim % x.dim(), f32_out)
 
 
 def rsqrt(x: Tensor) -> Tensor:
@@ -114,17 +225,19 @@ def stats(x: Tensor, dims) -> Tuple[Tensor, Tensor]:
     return mean.to(x.dtype), var.to(x.dtype)
 
 
-def normalize(x: Tensor, dims, eps: float, f32_out: bool = False) -> Tensor:
+def normalize(x: Tensor, dims, eps: float, f32_out: bool = False, order=None) -> Tensor:
     """(x - mean) * rsqrt(var + eps) over dims (population variance), as
     the JAX package's instance and layer norms compute it: at f32 as is;
     below f32 from rounded statistics, difference and rsqrt, the product
-    rounded too unless f32_out (it meets an f32 scale: taken in f32)."""
+    rounded too unless f32_out (it meets an f32 scale: taken in f32); the
+    statistics broadcast with bcast (order: dims in JAX's layout order)."""
     if x.dtype == F32:
         mean = x.mean(dim=dims, keepdim=True)
         var = x.var(dim=dims, keepdim=True, unbiased=False)
         return (x - mean) * torch.rsqrt(var + eps)
     mean, var = stats(x, dims)
-    d, r = x - mean, rsqrt(var + const(eps, x))
+    d = x - bcast(mean, x.shape, order)
+    r = bcast(rsqrt(var + const(eps, x)), x.shape, order)
     return d.float() * r.float() if f32_out else d * r
 
 

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .lowp import F32, const, dense
+from .lowp import F32, bcast, const, dense, sigmoid, softmax
 
 Tensor = torch.Tensor
 
@@ -33,17 +33,22 @@ class ScoreMLP(nn.Module):
 
 
 class S2DMatching(nn.Module):
-    """Score logits [N, M] = MLP(desc3d[n] * desc2d[m]), in row tiles so
-    the [tile, M, C] product stays bounded."""
+    """Score logits [N, M] = MLP(desc3d[n] * desc2d[m]), in row tiles of
+    min(row_tile, N) rows (the last one zero-padded, as the JAX package
+    tiles its lax.map) so the [tile, M, C] product stays bounded."""
 
-    def __init__(self, cin: int, row_tile: int = 128, dtype: torch.dtype = F32):
+    def __init__(self, cin: int, row_tile: int = 64, dtype: torch.dtype = F32):
         super().__init__()
         self.mlps = ScoreMLP(cin, dtype)
         self.row_tile = row_tile
 
     def forward(self, desc3d: Tensor, desc2d: Tensor) -> Tensor:
-        return torch.cat([self.mlps(blk[:, None, :] * desc2d[None, :, :])
-                          for blk in torch.split(desc3d, self.row_tile)], dim=0)
+        N, C = desc3d.shape
+        tile = min(self.row_tile, N)
+        d3 = F.pad(desc3d, (0, 0, 0, -N % tile))
+        shape = (tile, desc2d.shape[0], C)
+        return torch.cat([self.mlps(bcast(blk[:, None, :], shape) * bcast(desc2d[None], shape))
+                          for blk in torch.split(d3, tile)], dim=0)[:N]
 
 
 def sigmoid_focal_loss(logits: Tensor, targets: Tensor, alpha: float = 0.25,
@@ -57,9 +62,61 @@ def sigmoid_focal_loss(logits: Tensor, targets: Tensor, alpha: float = 0.25,
     return alpha_w * torch.pow(pt, gamma) * bce
 
 
+class _FocalMeanLowp(torch.autograd.Function):
+    """mean(sigmoid_focal_loss(logits, targets)) for bf16 logits and
+    targets, forward and backward rounded where XLA rounds the jitted JAX
+    graph and its transpose: every elementwise step to bf16, the products
+    focal weight x BCE summed unrounded in f32 and the mean rounded; the
+    backward rounds each cotangent step (as the optimized HLO of
+    jax.grad(coarse_loss) reads). Autograd through the bf16 forward fuses
+    torch's own derivative formulas and rounds elsewhere."""
+
+    @staticmethod
+    def forward(ctx, logits: Tensor, targets: Tensor) -> Tensor:
+        dt = logits.dtype
+
+        def r(v):
+            return v.to(dt).float()
+        l, t = logits.float(), targets.float()
+        pred = sigmoid(logits).float()
+        omt, omp = r(1.0 - t), r(1.0 - pred)
+        a = r(r(t * 0.25) + r(omt * 0.75))
+        pt = r(r(t * omp) + r(omt * pred))
+        fw = r(a * r(pt * pt))
+        e = r(torch.exp(r(-r(l.abs()))))
+        mx = r(torch.clamp(l, min=0.0))
+        bce = r(r(mx - r(l * t)) + r(torch.log1p(e)))
+        ctx.save_for_backward(l, t, pred, omt, omp, a, pt, fw, e, mx, bce)
+        return (torch.sum(fw * bce) / l.numel()).to(dt)
+
+    @staticmethod
+    def backward(ctx, ct: Tensor):
+        l, t, pred, omt, omp, a, pt, fw, e, mx, bce = ctx.saved_tensors
+        dt = ct.dtype
+
+        def r(v):
+            return v.to(dt).float()
+        g = r(ct.float() / l.numel())
+        d_bce, d_fw = r(fw * g), r(bce * g)
+        # bce = max(l, 0) - l t + log1p(exp(-|l|))
+        d_abs = r(-r(r(d_bce / r(1.0 + e)) * e))
+        pos = l >= 0
+        dl = r(r(torch.where(pos, d_abs, 0.0)) + r(-r(torch.where(pos, 0.0, d_abs))))
+        dl = r(dl + r(r(-d_bce) * t))
+        tie = r(torch.where(l == mx, 1.0, 0.0) / torch.where(mx == 0, 2.0, 1.0))
+        dl = r(dl + r(d_bce * tie))
+        # focal weight a pt^2, pt = t (1 - pred) + (1 - t) pred
+        d_pt = r(r(a * d_fw) * r(pt * 2.0))
+        d_pred = r(r(omt * d_pt) + r(-r(t * d_pt)))
+        dl = r(dl + r(d_pred * r(pred * omp)))
+        return dl.to(dt), None
+
+
 def coarse_loss(conf_logits: Tensor, conf_gt: Tensor,
                 valid: Optional[Tensor] = None) -> Tensor:
     """Mean focal loss over the [N, M] score grid (over `valid` cells)."""
+    if valid is None and conf_logits.dtype != F32:
+        return _FocalMeanLowp.apply(conf_logits, conf_gt)
     loss = sigmoid_focal_loss(conf_logits, conf_gt)
     if valid is None:
         return torch.mean(loss)
@@ -113,14 +170,9 @@ class FineMatching(nn.Module):
     def forward(self, feat3d: Tensor, feat2d_win: Tensor) -> Tensor:
         M, WW, C = feat2d_win.shape
         W = int(round(WW ** 0.5))
-        sim = self.mlps(feat3d[:, None, :] * feat2d_win)
-        if sim.dtype == F32:
-            heat = torch.softmax(sim / (C ** 0.5), dim=1)
-        else:
-            # bf16 softmax whose division meets the f32 grid (so is f32)
-            s = sim / const(C ** 0.5, sim)
-            e = torch.exp((s - s.amax(dim=1, keepdim=True)).float())
-            heat = e.to(s.dtype).float() / e.sum(dim=1, keepdim=True).to(s.dtype).float()
+        sim = self.mlps(bcast(feat3d[:, None, :], feat2d_win.shape) * feat2d_win)
+        # below f32 the softmax's division meets the f32 grid (so is f32)
+        heat = softmax(sim / const(C ** 0.5, sim), dim=1, f32_out=True)
         lin = torch.linspace(-1.0, 1.0, W, device=heat.device, dtype=heat.dtype)
         gy, gx = torch.meshgrid(lin, lin, indexing="ij")
         grid = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)

@@ -17,8 +17,8 @@ which pose to keep.
 configs.compute_dtype_of resolves cfg.compute_dtype as the JAX package's
 CLIs and bench do). Parameters stay f32. At bf16 the query's outputs keep
 the JAX package's dtypes: the score matrix bf16, the keypoints, matches
-and pose f32 (PnP takes f32 inputs). The train and eval steps take f32
-models only, for now.
+and pose f32 (PnP takes f32 inputs). Training adds each loss term to an
+f32 total as JAX promotes it (`_weighted`).
 
 A training query replaces PnP by the losses: the keypoints projected with
 the ground-truth pose give the coarse targets and the fine windows (for
@@ -46,7 +46,7 @@ from .backbone import Backbone2D
 from .fields.conditional_nerf import ConditionalNeRF
 from .fields.context import SceneContext
 from .fields.losses import img2mse, mse2psnr, rendering_loss
-from .lowp import F32, dense, sigmoid
+from .lowp import F32, const, dense, sigmoid
 from .matching import (FineMatching, FinePreprocess, S2DMatching, coarse_loss,
                        fine_loss_l2, fine_loss_l2_std, gather_windows,
                        mutual_nearest_matches)
@@ -91,6 +91,14 @@ def _cell_index(x: Tensor, n: int) -> Tensor:
     """clip(int(x), 0, n - 1), with int() truncating towards zero and
     saturating as XLA's float-to-int conversion does."""
     return torch.clamp(x, -1.0, float(n)).long().clamp(0, n - 1)
+
+
+def _weighted(loss: Tensor, w: float, term: Tensor) -> Tensor:
+    """loss + w * term into the f32 accumulator, as JAX adds a term of any
+    dtype: the weight rounded to the term's dtype (a weak-typed scalar),
+    the product taken in f32 (XLA computes the step before the promotion in
+    f32)."""
+    return loss + const(w, term) * term.float()
 
 
 def to_device_batch(batch: Mapping[str, np.ndarray], device: torch.device
@@ -357,23 +365,23 @@ class NerfPoseEstimator(nn.Module):
             out.update({k: m[k] for k in ("coarse_loss", "fine_loss", "fine_err",
                                           "match_j", "match_mask")})
             out["j_gt"], out["gt_mask"] = pairs[:2]
-            loss = loss + cfg.coarse_loss_weight * m["coarse_loss"] \
-                + cfg.fine_loss_weight * m["fine_loss"]
+            loss = _weighted(loss, cfg.coarse_loss_weight, m["coarse_loss"])
+            loss = _weighted(loss, cfg.fine_loss_weight, m["fine_loss"])
             if cfg.cascade_matching:
                 vis = select_visible_mask(pts3d, batch["pose"], batch["K"], H, W)
                 m2 = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs,
                                 kp_mask=vis, second=True)
                 out["coarse_loss2"], out["fine_loss2"] = m2["coarse_loss"], m2["fine_loss"]
-                loss = loss + cfg.coarse_loss_weight * m2["coarse_loss"] \
-                    + cfg.fine_loss_weight * m2["fine_loss"]
+                loss = _weighted(loss, cfg.coarse_loss_weight, m2["coarse_loss"])
+                loss = _weighted(loss, cfg.fine_loss_weight, m2["fine_loss"])
         depths_gt = batch.get("topk_depths_gt", batch["topk_depths"])
         out["ref_depth_loss"] = self.model_3d.multiview_aggregator.ref_depth_loss(
             ctx.sv, depths_gt)
-        loss = loss + cfg.ref_depth_loss_weight * out["ref_depth_loss"]
+        loss = _weighted(loss, cfg.ref_depth_loss_weight, out["ref_depth_loss"])
         if cfg.train_nerf:
             out["render_loss"], out["psnr"] = self.compute_render_loss(ctx, q2d, batch,
                                                                        ray_idx)
-            loss = loss + cfg.render_loss_weight * out["render_loss"]
+            loss = _weighted(loss, cfg.render_loss_weight, out["render_loss"])
         out["loss"] = loss
         return out
 

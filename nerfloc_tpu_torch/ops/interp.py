@@ -49,6 +49,41 @@ def bilinear_sample_views(feats: Tensor, uv: Tensor) -> Tensor:
     return torch.stack([bilinear_sample(f, p) for f, p in zip(feats, uv)])
 
 
+class _SampleMapGrad(torch.autograd.Function):
+    """bilinear_sample whose feature-map gradient is built as the JAX
+    package's `bilinear_sample_mm_grad` builds it: each point's four corner
+    weights in the cotangent's dtype (rounded step by step below f32), the
+    weighted cotangents summed in f32, the sum cast to the map's dtype. The
+    sample locations get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feat: Tensor, uv: Tensor) -> Tensor:
+        ctx.save_for_backward(uv)
+        ctx.fshape, ctx.fdtype = feat.shape, feat.dtype
+        return bilinear_sample(feat, uv)
+
+    @staticmethod
+    def backward(ctx, gy: Tensor):
+        uv, = ctx.saved_tensors
+        H, W, C = ctx.fshape
+        u0, v0, du, dv = _corners(uv.reshape(-1, 2), H, W)
+        du, dv = du[:, 0].to(gy.dtype), dv[:, 0].to(gy.dtype)
+        base = v0 * W + u0
+        g = gy.reshape(-1, C).float()
+        acc = torch.zeros(H * W, C, dtype=torch.float32, device=gy.device)
+        for off, w in ((0, (1 - du) * (1 - dv)), (1, du * (1 - dv)),
+                       (W, (1 - du) * dv), (W + 1, du * dv)):
+            acc.index_add_(0, base + off, w.float()[:, None] * g)
+        return acc.reshape(H, W, C).to(ctx.fdtype), None
+
+
+def bilinear_sample_views_map_grad(feats: Tensor, uv: Tensor) -> Tensor:
+    """bilinear_sample_views for the scene-context build (the JAX package's
+    bilinear_sample_mm_grad): the maps' gradient as _SampleMapGrad computes
+    it, none for uv."""
+    return torch.stack([_SampleMapGrad.apply(f, p.detach()) for f, p in zip(feats, uv)])
+
+
 def pack_bilinear_corners(feats: Tensor) -> Tensor:
     """[V, H, W, C] -> [V*H*W, 4C]; row (v, y, x) holds the 2x2 block
     [f[y,x] | f[y,x+1] | f[y+1,x] | f[y+1,x+1]] (wraparound rows are never

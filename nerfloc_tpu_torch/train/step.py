@@ -12,10 +12,6 @@ own PnP and the gate that keeps its pose only if it explains the first
 pass's matches about as well (cfg.cascade_matching), photometric
 refinement (cfg.optimize_pose), then the pose error and the matching IoU
 against the ground-truth pairs.
-
-Both take f32 models only: the bf16 train and eval steps (the loss kept in
-f32, the refinement's replayed bf16 backward) are a later slice of the
-port.
 """
 from __future__ import annotations
 
@@ -37,12 +33,6 @@ CASCADE_SLACK = 0.95    # share of the first pass's inliers the cascade pose mus
 REFINE_STEPS, REFINE_LR = 50, 1e-3
 
 
-def _f32_only(model, what: str) -> None:
-    if model.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what}: the port's step runs f32 models only, got compute dtype {model.dtype}")
-
-
 def make_train_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
     """Returns train_step(state, batch, kp_gumbel=None, ray_idx=None,
     generator=None) -> metrics, for a TrainState of `model`.
@@ -52,7 +42,6 @@ def make_train_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
     `generator` where not given. The metrics are 0-d tensors on the model's
     device: the means over B of loss and of its terms, fine_err, psnr and
     matching_iou, and grad_norm, the global norm of the raw gradients."""
-    _f32_only(model, "make_train_step")
 
     def train_step(state: TrainState, batch: Mapping[str, Tensor],
                    kp_gumbel: Optional[Tensor] = None, ray_idx: Optional[Tensor] = None,
@@ -96,7 +85,6 @@ def make_eval_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
     kp_gumbel [P_coarse] (keypoint draw), pnp_gumbel and pnp2_gumbel
     [n_hyps, n_keypoints] (RANSAC minimal sets of the two passes) and
     refine_uv [pose_refine_rays, 2] (refinement pixels)."""
-    _f32_only(model, "make_eval_step")
 
     def one(b: Mapping[str, Tensor], generator, noise: Dict[str, Tensor]):
         dev = model.device

@@ -38,7 +38,6 @@ from nerfloc_tpu_torch.models.fields.context import NeuralPoints as TPoints
 from nerfloc_tpu_torch.models.matching import mutual_nearest_matches as t_mutual
 from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
 from nerfloc_tpu_torch.ops import fused_agg as tfa
-from nerfloc_tpu_torch.train.step import make_eval_step, make_train_step
 from nerfloc_tpu_torch.weights import agg_params_from_flax, load_flax_variables
 
 from _torch_parity import CPU, few_threads, jax_cfg, port_cfg, t, to_numpy  # noqa: F401
@@ -706,14 +705,3 @@ def test_render_image_bf16_is_finite(S, Q):
     assert out["rgb"].shape == (8, 8, 3)
     for k in ("rgb", "depth"):
         assert bool(torch.isfinite(out[k]).all()), k
-
-
-# ---------------------------------------------------------------------------
-# 5. the steps wait for their slice
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("make", [make_train_step, make_eval_step])
-def test_steps_refuse_a_bf16_model(S, make):
-    with pytest.raises(NotImplementedError):
-        make(S.pm[16], S.pm[16].cfg)
-    make(S.pm[32], S.pm[32].cfg)

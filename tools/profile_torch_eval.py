@@ -2,12 +2,13 @@
 """Where the time of one eval query goes, on the GPU, in the PyTorch port
 (nerfloc_tpu_torch).
 
-    python3 tools/profile_torch_eval.py [--out profile.json]
+    python3 tools/profile_torch_eval.py [--dtype bfloat16] [--out profile.json]
 
 Runs make_eval_step at full width (default Config with
 render.fused_query_agg=True, cascade_matching=True, optimize_pose=True;
 V=5 at 240x320, 512 refinement rays x 64 samples, 50 Adam steps; seeded
-weights and noise), one query per step, and reports:
+weights and noise; --dtype: the model's compute dtype, float32 by
+default), one query per step, and reports:
   * per-stage device times inside the real step, by CUDA events recorded
     around each stage's function: localization (build_context,
     query_coarse, the first match, the first PnP), the cascade
@@ -72,6 +73,8 @@ def split_calls(T, name: str, names):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the model's compute dtype")
     ap.add_argument("--out", default="", help="also write the full result as JSON here")
     args = ap.parse_args()
 
@@ -93,7 +96,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     cfg = cs.eval_cfg()
-    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=getattr(torch, args.dtype))
     step = make_eval_step(model, cfg)
     batch = to_device_batch(stack_batches([device_batch(make_query_batch(
         n_views=5, H=240, W=320, seed=0))]), dev)
@@ -168,7 +171,7 @@ def main() -> int:
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_prof
     result = {
-        "card": card, "stage_ms": stage_ms, "calls_per_query": calls,
+        "card": card, "dtype": args.dtype, "stage_ms": stage_ms, "calls_per_query": calls,
         "profiled_wall_ms_per_query": wall_ms, "device_busy_ms_per_query": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_activities_per_query": sum(e.count for e in kernels) / n_prof,
@@ -176,7 +179,8 @@ def main() -> int:
                         "calls_per_query": e.count / n_prof} for e in kernels[:25]],
     }
     print(f"eval query, V=5 240x320, cascade + refinement ({cfg.shapes.pose_refine_rays} rays "
-          f"x {cfg.render.N_samples} samples, 50 Adam steps); {card}")
+          f"x {cfg.render.N_samples} samples, 50 Adam steps), compute dtype {args.dtype}; "
+          f"{card}")
     print("  stages (device ms inside one query, median of 3; calls per query):")
     for k, v in stage_ms.items():
         print(f"    {k:52s} {v:10.3f}  {calls.get(k, '')}")

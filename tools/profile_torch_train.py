@@ -2,11 +2,12 @@
 """Where the time of one train step goes, on the GPU, in the PyTorch port
 (nerfloc_tpu_torch).
 
-    python3 tools/profile_torch_train.py [--out profile.json]
+    python3 tools/profile_torch_train.py [--dtype bfloat16] [--out profile.json]
 
 Runs make_train_step at full width (default Config with
 render.fused_query_agg=True, V=5 at 240x320, 1024 keypoints, 1024 rays
-dense-64, B=1, seeded weights and noise) and reports:
+dense-64, B=1, seeded weights and noise; --dtype: the model's compute
+dtype, float32 by default) and reports:
   * per-stage device times inside the real step: CUDA events recorded
     around build_context, the matching forward (query_coarse, the
     ground-truth pairs, match), the ref-depth loss, the render loss
@@ -17,9 +18,9 @@ dense-64, B=1, seeded weights and noise) and reports:
   * the device memory of one step: the peak since the step began, read
     at the end of each stage, and what the forward leaves allocated for
     the backward;
-  * the context sampler's backward (the scatter-add of the bilinear
-    samples of [fine features | ray features] at every fine point in every
-    view) at the step's shapes, timed alone: median of 10;
+  * the context sampler's backward (the index-add of the bilinear samples
+    of [fine features | ray features] at every fine point in every view)
+    at the step's shapes, timed alone: median of 10;
   * a torch.profiler window over 3 steps: device busy time per step, the
     device's idle share of the wall time, device activities per step, the
     index-backward (scatter-add) kernels' share, and the top kernels;
@@ -98,7 +99,7 @@ def sampler_backward_ms(model, batch):
     import torch
     from nerfloc_tpu_torch.models.fields.projector import (compute_projections,
                                                            feature_uv_scale)
-    from nerfloc_tpu_torch.ops.interp import bilinear_sample_views
+    from nerfloc_tpu_torch.ops.interp import bilinear_sample_views_map_grad
     with torch.no_grad():
         ctx, _ = model.build_context(batch)
     sv, fmap = ctx.sv, ctx.feat_fine_src
@@ -112,7 +113,7 @@ def sampler_backward_ms(model, batch):
     for i in range(13):
         e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         e[0].record()
-        out = bilinear_sample_views(maps, uv)
+        out = bilinear_sample_views_map_grad(maps, uv)
         e[1].record()
         torch.autograd.grad(out, maps, cot)
         e[2].record()
@@ -125,6 +126,8 @@ def sampler_backward_ms(model, batch):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the model's compute dtype")
     ap.add_argument("--out", default="", help="also write the full result as JSON here")
     args = ap.parse_args()
 
@@ -147,7 +150,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     cfg = Config(render=RenderConfig(fused_query_agg=True))
-    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=getattr(torch, args.dtype))
     batch = to_device_batch(stack_batches([device_batch(make_query_batch(
         n_views=5, H=240, W=320, seed=0))]), dev)
     state = TrainState(model, cfg)
@@ -239,7 +242,7 @@ def main() -> int:
         torch.cuda.set_per_process_memory_fraction(1.0)
 
     result = {
-        "card": card, "stage_ms": stage_ms,
+        "card": card, "dtype": args.dtype, "stage_ms": stage_ms,
         "context_sampler": {"maps": s_shape, "points_per_view": s_pts,
                             "forward_ms": s_fwd, "backward_ms": s_bwd},
         "profiled_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -252,7 +255,8 @@ def main() -> int:
         "top_device": [{"name": e.key, "ms_per_step": dev_us(e) / 1e3 / n_prof,
                         "calls_per_step": e.count / n_prof} for e in kernels[:25]],
     }
-    print(f"train step, V=5 240x320, B=1, 1024 keypoints, 1024 rays x 64 samples; {card}")
+    print(f"train step, V=5 240x320, B=1, 1024 keypoints, 1024 rays x 64 samples, compute "
+          f"dtype {args.dtype}; {card}")
     print("  stages (device ms inside one step, median of 5):")
     for k, v in stage_ms.items():
         print(f"    {k:36s} {v:9.3f}")
