@@ -81,6 +81,27 @@ Phases (any failure exits non-zero):
      width as in 11c (exactly 55 bf16 launches per query, 52 in
      refinement, and 0 f32 ones), eval_dataset and render_psnr_eval; the
      bf16 and f32 step times side by side.
+ 14. the CLIs on files: two scenes written by data.synthetic.write_scene
+     at 480x640 (16 train and 2 test frames each, PNG frames through the
+     port's encoder with libpng's adaptive filter choice per row, so most
+     rows are Up, Avg or Paeth; netvlad retrieval pkls), a data YAML with
+     video_7scenes's TRANSFORM and AUG_TRANSFORM pointed at them, and
+     configs/7scenes_all.yaml loaded by the port's load_config with only
+     dataset_type, scenes and max_epochs: 1 replaced (the test CLI also
+     sets cascade_matching and optimize_pose; render.fused_query_agg stays
+     off, and the card runs the kernel all the same); cli.train.main for
+     one epoch (B=1; exactly 3 bf16 launches and 0 f32 per step, the
+     counters set to 0 just before each step and read just after; loss and
+     grad_norm finite; the epoch eval's psnr_test finite; a pose_acc best
+     stream), then the same batches through a fresh model's step with no
+     loader running, then cli.test.main over its checkpoints (exactly 55
+     bf16 launches per query; the per-scene table finite, n == 4); no cv2,
+     PIL or yaml module loaded; host ms per dataset item (train with
+     augmentation, test), the loader's items/s at the CLI's B=1 and at B=8
+     with 8 threads and with 1, the CLI's median ms/step and the share of
+     the epoch outside the step, eval ms/query, the PNG decoder's ms per
+     480x640 Paeth frame, and the exact-KNN calls of the steps timed with
+     ops/knn's squared norms and with plain f32 ones.
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result.
@@ -111,6 +132,10 @@ REFINE_N = 512 * 64              # refinement rays x 64 samples
 # (1), 50 refinement steps and the losses before and after them (52)
 EVAL_LAUNCHES, REFINE_LAUNCHES = 55, 52
 EVAL_WARMUP, EVAL_QUERIES = 2, 5
+# phase 14: the 7-Scenes frame size, two scenes; 10 retrieved views per
+# frame for n_views_test
+CLI_H, CLI_W, CLI_TRAIN, CLI_TEST, CLI_SUPPORT = 480, 640, 16, 2, 10
+CLI_SCENES = ("box0", "box1")
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
 # bf16 kernel vs its plain version: both round to bf16 at the same points
 # and differ in the order of their f32 sums, which moves a value across a
@@ -1500,6 +1525,344 @@ def check_fused_agg_bf16_steps(dev, card: str):
     return worst, times
 
 
+class StepProbe:
+    """Wraps a CLI module's make_train_step / make_eval_step: each step is
+    synchronized, the launch counters are set to 0 just before it and read
+    just after (exactly `expect` of the bf16 instantiation and none of the
+    f32 one), and its time and the time since the previous step returned
+    are kept; with keep_batches, its device batch too."""
+
+    def __init__(self, module, name: str, expect: int, what: str,
+                 keep_batches: bool = False, knn_count=None):
+        self.module, self.name, self.expect, self.what = module, name, expect, what
+        self.knn_count = knn_count
+        self.orig = getattr(module, name)
+        self.ms, self.gaps, self.launches, self.last_exit = [], [], [], None
+        self.batches = [] if keep_batches else None
+        setattr(module, name, self.make)
+
+    def make(self, *args, **kwargs):
+        import torch
+        step = self.orig(*args, **kwargs)
+
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if self.last_exit is not None:
+                self.gaps.append((t0 - self.last_exit) * 1e3)
+            if self.batches is not None:
+                self.batches.append(a[1])
+            if self.knn_count is not None:
+                self.knn_count.active = True
+            zero_launch_counts()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if self.knn_count is not None:
+                self.knn_count.active = False
+            self.launches.append(expect_launches(self.expect, True,
+                                                 f"{self.what} {len(self.ms)}"))
+            self.ms.append((t1 - t0) * 1e3)
+            self.last_exit = t1
+            return out
+        return wrapped
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+class KnnCount:
+    """Counts the exact-KNN calls of the conditional NeRF (ops/knn.knn, the
+    query's neighbour search) by shape while `active`."""
+
+    def __init__(self):
+        from nerfloc_tpu_torch.models.fields import conditional_nerf
+        self.module, self.orig = conditional_nerf, conditional_nerf.knn
+        self.active, self.calls = False, defaultdict(int)
+        conditional_nerf.knn = self
+
+    def __call__(self, queries, points, K, points_mask=None):
+        if self.active:
+            self.calls[(queries.shape[0], points.shape[0], K)] += 1
+        return self.orig(queries, points, K, points_mask=points_mask)
+
+    def take(self):
+        calls, self.calls = dict(self.calls), defaultdict(int)
+        return calls
+
+    def restore(self):
+        self.module.knn = self.orig
+
+
+def knn_norm_ms(calls, dev) -> tuple:
+    """Host-clock ms of the knn calls `calls` {(N, M, K): count} as ops/knn
+    computes them (sq_norm: XLA's CPU rounding, f64 steps) and with
+    torch.sum squared norms in f32, on seeded points: per shape 20 calls,
+    synchronized, times its count, summed; the two forms in turn 5 times,
+    the median of the last 4."""
+    import torch
+    from nerfloc_tpu_torch.ops.knn import knn, topk_first
+
+    def knn_sum(q, p, K, mask):
+        d = torch.sum(q * q, dim=-1, keepdim=True) - 2.0 * (q @ p.T) + \
+            torch.sum(p * p, dim=-1)[None, :]
+        d = torch.where(mask[None, :], torch.clamp(d, min=0.0), torch.finfo(d.dtype).max / 4)
+        return topk_first(d, K, largest=False)
+
+    def knn_sq_norm(q, p, K, mask):
+        return knn(q, p, K, points_mask=mask)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = [(torch.rand(N, 3, device=dev, generator=gen) * 4,
+               torch.rand(M, 3, device=dev, generator=gen) * 4,
+               K, torch.rand(M, device=dev, generator=gen) > 0.1, n)
+              for (N, M, K), n in calls.items()]
+    turns = {knn_sq_norm: [], knn_sum: []}
+    for _ in range(5):
+        for fn, totals in turns.items():
+            total = 0.0
+            for q, p, K, mask, n in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn(q, p, K, mask)
+                torch.cuda.synchronize()
+                total += n * (time.perf_counter() - t0) * 1e3 / 20
+            totals.append(total)
+    return statistics.median(turns[knn_sq_norm][1:]), statistics.median(turns[knn_sum][1:])
+
+
+def write_flow_yaml(path: str, doc) -> None:
+    """A YAML document as one flow collection (JSON is such a document)."""
+    with open(path, "w") as f:
+        f.write(json.dumps(doc) + "\n")
+
+
+def clis_on_files(dev, card: str):
+    """Phase 14: the train and test CLIs on written 480x640 scenes at full
+    width in bf16 (see the module docstring). Returns its numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from nerfloc_tpu_torch.cli import test as cli_test
+    from nerfloc_tpu_torch.cli import train as cli_train
+    from nerfloc_tpu_torch.configs import compute_dtype_of, load_config, load_yaml
+    from nerfloc_tpu_torch.data import build_dataset, png
+    from nerfloc_tpu_torch.data.prefetch import BatchLoader
+    from nerfloc_tpu_torch.data.synthetic import SCENE_VARIANTS, write_scene
+    from nerfloc_tpu_torch.train.checkpoint import discover_best_dirs
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        t0 = time.perf_counter()
+        for i, name in enumerate(CLI_SCENES):
+            tex, bh, rs = SCENE_VARIANTS[i]
+            write_scene(root, scene=name, n_train=CLI_TRAIN, n_test=CLI_TEST,
+                        n_support=CLI_SUPPORT, tex=tex, box_half=bh, radius_scale=rs,
+                        H=CLI_H, W=CLI_W)
+        rows = {"rgb": np.zeros(5, np.int64), "depth": np.zeros(5, np.int64)}
+        for dirpath, _, files in os.walk(root):
+            for f in files:
+                if f.endswith(".png"):
+                    with open(os.path.join(dirpath, f), "rb") as fh:
+                        kind = "depth" if f.endswith(".depth.png") else "rgb"
+                        rows[kind] += np.bincount(png.filter_types(fh.read()), minlength=5)
+        print(f"cli: wrote {len(CLI_SCENES)} scenes of {CLI_TRAIN}+{CLI_TEST} frames at "
+              f"{CLI_H}x{CLI_W} in {time.perf_counter() - t0:.2f} s, rows filtered per row as "
+              f"libpng's adaptive choice: rows of filter type 0-4 "
+              f"{rows['rgb'].tolist()} (RGB), {rows['depth'].tolist()} (depth)")
+        data = load_yaml(os.path.join(repo, "nerfloc_tpu_torch", "configs", "data",
+                                      "video_7scenes.yaml"))
+        data.update(base_dir=root, scenes=list(CLI_SCENES))
+        data_path = os.path.join(root, "data.yaml")
+        write_flow_yaml(data_path, data)
+        base_path = os.path.join(repo, "configs", "7scenes_all.yaml")
+        overrides = {"dataset_type": data_path, "scenes": list(CLI_SCENES), "max_epochs": 1}
+        test_overrides = {**overrides, "cascade_matching": True, "optimize_pose": True}
+        paths = {}
+        for kind, ov in (("train", overrides), ("test", test_overrides)):
+            doc = load_yaml(base_path)
+            doc.update(ov)
+            paths[kind] = os.path.join(root, f"{kind}.yaml")
+            write_flow_yaml(paths[kind], doc)
+            if load_config(paths[kind]) != load_config(base_path, ov):
+                fail(f"cli: the written {kind} config is not 7scenes_all.yaml with {ov}")
+        cfg = load_config(paths["train"])
+        if compute_dtype_of(cfg) != torch.bfloat16:
+            fail("cli: the config's compute dtype is not bf16")
+
+        # host side: dataset items, the loader, the PNG decoder
+        train_ds = build_dataset(cfg, "train", mode="train")
+        test_ds = build_dataset(cfg, "test", mode="test")
+        item_ms = {}
+        for kind, ds in (("train", train_ds), ("test", test_ds)):
+            times = []
+            for i in range(min(8, len(ds))):
+                t0 = time.perf_counter()
+                ds[i]
+                times.append((time.perf_counter() - t0) * 1e3)
+            item_ms[kind] = statistics.median(times)
+        # BatchLoader assembles one batch at a time (pool.map over its
+        # items): at the CLI's B=1 one thread works; B=8 gives 8 threads 8
+        # items at once, and B=8 with one thread is the serial rate
+        rates, B8 = {}, min(8, len(train_ds))
+        for B, workers in ((1, 8), (B8, 8), (B8, 1)):
+            loader = BatchLoader(train_ds, B, shuffle=True, seed=0, num_workers=workers)
+            t0 = time.perf_counter()
+            n_items = B * sum(1 for _ in loader.epoch(0))
+            rates[(B, workers)] = n_items / (time.perf_counter() - t0)
+        items_per_s = rates[(1, 8)]
+        frame = (np.random.default_rng(0).random((CLI_H, CLI_W, 3)) * 255).astype(np.uint8)
+        blob = png.encode(frame, 4)
+        raw = png.filter_rows(frame.reshape(CLI_H, -1), 3, np.full(CLI_H, 4))
+        unfilter_ms = statistics.median(_host_ms(lambda: png.unfilter(raw, 3)) for _ in range(5))
+        decode_ms = statistics.median(_host_ms(lambda: png.decode(blob)) for _ in range(5))
+        if not np.array_equal(png.decode(blob), frame):
+            fail("cli: a Paeth-filtered 480x640 frame does not decode to itself")
+        print(f"cli host: build_dataset item {item_ms['train']:.2f} ms (train, with augmentation, "
+              f"V={cfg.n_views_train}), {item_ms['test']:.2f} ms (test, V={cfg.n_views_test}); "
+              f"BatchLoader over {n_items} items: B=1 (the CLI's; 1 of 8 threads at work) "
+              f"{rates[(1, 8)]:.2f} items/s, B={B8} with 8 threads {rates[(B8, 8)]:.2f}, B={B8} "
+              f"with 1 thread {rates[(B8, 1)]:.2f}; PNG Paeth {CLI_H}x{CLI_W} frame: native unfilter "
+              f"{unfilter_ms:.2f} ms, decode {decode_ms:.2f} ms; {card}")
+
+        # the train CLI
+        runs = os.path.join(root, "runs")
+        print(f"cli: render.fused_query_agg {cfg.render.fused_query_agg} (the YAML's); on "
+              "the card the query aggregation is the fused kernel all the same")
+        knn_count = KnnCount()
+        probe = StepProbe(cli_train, "make_train_step", 3, "cli train step",
+                          keep_batches=True, knn_count=knn_count)
+        try:
+            t0 = time.perf_counter()
+            rc = cli_train.main(["--config", paths["train"], "--basedir", runs, "--batch", "1",
+                                 "--eval_interval", "1", "--train_render_views", "1",
+                                 "--device", "cuda"])
+            train_wall = time.perf_counter() - t0
+        finally:
+            probe.restore()
+        if rc != 0 or len(probe.ms) != len(train_ds):
+            fail(f"cli train: rc {rc}, {len(probe.ms)} steps for {len(train_ds)} items")
+        run_dir = os.path.join(runs, cfg.expname or "default", cfg.version)
+        log = [json.loads(line) for line in open(os.path.join(run_dir, "log.jsonl"))]
+        for rec in log:
+            if "loss" in rec and not (math.isfinite(rec["loss"]) and
+                                      math.isfinite(rec["grad_norm"])):
+                fail(f"cli train: loss or grad_norm not finite: {rec}")
+        evals = [rec["eval"] for rec in log if "eval" in rec]
+        if not evals or not math.isfinite(evals[-1]["avg"].get("psnr_test", math.nan)):
+            fail(f"cli train: no finite psnr_test in the epoch eval: {evals}")
+        ckpts = os.path.join(run_dir, "ckpts")
+        if "pose_acc" not in discover_best_dirs(ckpts):
+            fail("cli train: no pose_acc best stream")
+        epoch_s = (sum(probe.ms) + sum(probe.gaps)) / 1e3
+        step_ms = statistics.median(probe.ms)
+        wait_share = sum(probe.gaps) / 1e3 / epoch_s
+        train_launches = probe.launches[-1]
+        train_knn = knn_count.take()
+        alone_ms = _step_alone_ms(cfg, probe.batches, dev)
+        probe.batches.clear()
+        print(f"cli train: {len(probe.ms)} steps, exactly {probe.launches[-1]} bf16 fused_agg "
+              f"launches each; median {step_ms:.2f} ms/step (min {min(probe.ms):.2f}, max "
+              f"{max(probe.ms):.2f}); outside the step between steps (loader wait + copy) "
+              f"{wait_share:.4f} of {epoch_s:.2f} s; the same {len(probe.ms)} batches through "
+              f"a fresh model's step with no loader running {alone_ms:.2f} ms/step (median); "
+              f"CLI wall {train_wall:.2f} s; epoch eval {json.dumps(evals[-1]['avg'])}; {card}")
+
+        # the test CLI
+        out_json = os.path.join(root, "eval", "results.json")
+        probe = StepProbe(cli_test, "make_eval_step", EVAL_LAUNCHES, "cli eval query",
+                          knn_count=knn_count)
+        try:
+            t0 = time.perf_counter()
+            rc = cli_test.main(["--config", paths["test"], "--ckpt", ckpts, "--out", out_json,
+                                "--device", "cuda"])
+            test_wall = time.perf_counter() - t0
+        finally:
+            probe.restore()
+            knn_count.restore()
+        n_test = len(CLI_SCENES) * CLI_TEST
+        if rc != 0 or len(probe.ms) != n_test:
+            fail(f"cli test: rc {rc}, {len(probe.ms)} queries for {n_test} items")
+        per_scene = json.load(open(out_json))["per_scene"]
+        for name in (*CLI_SCENES, "avg"):
+            row = per_scene.get(name)
+            if row is None or not all(math.isfinite(v) for v in row.values()) or \
+                    not 0 <= row["pose_acc"] <= 1:
+                fail(f"cli test: row {name} malformed: {row}")
+        if per_scene["avg"]["n"] != n_test:
+            fail(f"cli test: {per_scene['avg']['n']} queries counted, expected {n_test}")
+        eval_ms = statistics.median(probe.ms)
+        print(f"cli test: {n_test} queries (cascade + refinement), exactly "
+              f"{probe.launches[-1]} bf16 fused_agg launches each; median {eval_ms:.2f} "
+              f"ms/query (min {min(probe.ms):.2f}, max {max(probe.ms):.2f}); CLI wall "
+              f"{test_wall:.2f} s; table {json.dumps(per_scene)}; {card}")
+
+        # ops/knn's squared norms (XLA's CPU rounding, in f64 steps) against
+        # plain f32 torch.sum norms, at the shapes and counts of the steps
+        eval_knn = knn_count.take()
+        n_steps = len(train_ds)
+        knn_ms = {}
+        for kind, calls, n in (("train", train_knn, n_steps), ("eval", eval_knn, n_test)):
+            per = {k: v / n for k, v in calls.items()}
+            knn_ms[kind] = knn_norm_ms(per, dev)
+            print(f"cli knn ({kind}): calls per {'step' if kind == 'train' else 'query'} by "
+                  f"(queries, points, K) {json.dumps({str(k): v for k, v in per.items()})}; "
+                  f"their host ms with ops/knn's sq_norm {knn_ms[kind][0]:.3f}, with f32 "
+                  f"torch.sum norms {knn_ms[kind][1]:.3f} (difference "
+                  f"{knn_ms[kind][0] - knn_ms[kind][1]:.3f} ms against "
+                  f"{step_ms if kind == 'train' else eval_ms:.2f} ms); {card}")
+    loaded = [m for m in ("cv2", "PIL", "yaml") if m in sys.modules]
+    if loaded:
+        fail(f"cli: {loaded} were imported")
+    out.update(cli_item_ms_train=item_ms["train"], cli_item_ms_test=item_ms["test"],
+               cli_loader_items_per_s=items_per_s, cli_train_ms_per_step=step_ms,
+               cli_train_launches_per_step=train_launches,
+               cli_loader_wait_share=wait_share, cli_train_ms_alone=alone_ms,
+               cli_eval_ms_per_query=eval_ms,
+               cli_eval_launches_per_query=probe.launches[-1],
+               png_unfilter_ms=unfilter_ms, png_decode_ms=decode_ms,
+               cli_loader_items_per_s_b8=rates[(B8, 8)],
+               cli_loader_items_per_s_b8_serial=rates[(B8, 1)],
+               knn_sq_norm_ms_train=knn_ms["train"], knn_sq_norm_ms_eval=knn_ms["eval"])
+    return out
+
+
+def _step_alone_ms(cfg, batches, dev) -> float:
+    """Median ms of make_train_step on a fresh model of the CLI's config
+    over `batches` (the CLI's own device batches, after 2 warm-up steps on
+    the first), with no loader thread running: the CLI's steps without the
+    data path beside them on the host."""
+    import torch
+    from nerfloc_tpu_torch.configs import compute_dtype_of
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator
+    from nerfloc_tpu_torch.train.state import TrainState
+    from nerfloc_tpu_torch.train.step import make_train_step
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=compute_dtype_of(cfg))
+    state, step = TrainState(model, cfg), make_train_step(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = []
+    for i, batch in enumerate([batches[0]] * 2 + list(batches)):
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        expect_launches(3, True, f"cli step alone {i}")
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    del model, state
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
                    bf16: bool = False):
     """Kernel, plain-version and bound times of the fused aggregation at the
@@ -1682,6 +2045,7 @@ def main() -> int:
     max_err_bf16 = max(max_err_bf16, steps_err)
     train16 = train_full_width(dev, card, torch.bfloat16)
     evals16 = eval_full_width(dev, card, torch.bfloat16)
+    cli = clis_on_files(dev, card)
     print(f"train step, full width: f32 {train['train_ms_per_step']:.2f} ms/step (peak "
           f"{train['train_peak_gib']:.2f} GiB), bf16 {train16['train_ms_per_step']:.2f} ms/step "
           f"(peak {train16['train_peak_gib']:.2f} GiB); eval query: f32 "
@@ -1702,7 +2066,9 @@ def main() -> int:
                 "train_launches_per_step": train16["train_launches_per_step"],
                 "eval_launches_per_query": evals16["eval_launches_per_query"],
                 "refine_launches_per_query": evals16["refine_launches_per_query"],
-                **steps_agg}]
+                **steps_agg,
+                "cli_train_launches_per_step": cli["cli_train_launches_per_step"],
+                "cli_eval_launches_per_query": cli["cli_eval_launches_per_query"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,18 @@
 """Typed config tree: a copy of the JAX package's frozen dataclasses
 (nerfloc_tpu/configs/__init__.py), kept here so the port imports nothing of
 that package. Field names and defaults are identical; see the original for
-the rationale behind each TPU-era knob.
+the rationale behind each TPU-era knob. `load_config` reads YAML through
+the port's own reader (yaml_subset), so loading a config needs no PyYAML.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from .yaml_subset import safe_load
 
 
 @dataclass(frozen=True)
@@ -151,3 +155,52 @@ def compute_dtype_of(cfg: Config) -> torch.dtype:
     """cfg.compute_dtype as a torch dtype: the model's compute dtype, as the
     JAX package's CLIs and bench build it (parameters stay f32)."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.compute_dtype]
+
+
+def _merge(obj: Any, overrides: Dict[str, Any]) -> Any:
+    """Recursively apply a nested dict onto a (frozen) dataclass tree."""
+    if not dataclasses.is_dataclass(obj):
+        return overrides
+    kwargs = {}
+    names = {f.name for f in dataclasses.fields(obj)}
+    for k, v in overrides.items():
+        if k not in names:
+            raise KeyError(f"unknown config key: {k!r}")
+        cur = getattr(obj, k)
+        if dataclasses.is_dataclass(cur) and isinstance(v, dict):
+            kwargs[k] = _merge(cur, v)
+        elif isinstance(cur, tuple) and isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    return dataclasses.replace(obj, **kwargs)
+
+
+def get_cfg_defaults() -> Config:
+    return Config()
+
+
+def load_yaml(path: str) -> Any:
+    """A YAML file's document (yaml_subset.safe_load)."""
+    with open(path) as f:
+        return safe_load(f.read())
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None) -> Config:
+    """A Config from the defaults, an optional YAML file, then `overrides`
+    (nested dicts, as the YAML's)."""
+    cfg = Config()
+    if path is not None:
+        cfg = _merge(cfg, load_yaml(path) or {})
+    if overrides:
+        cfg = _merge(cfg, overrides)
+    return cfg
+
+
+def override_cfg_with_args(cfg: Config, args: Any) -> Config:
+    """Apply argparse namespace values onto matching top-level config keys
+    (None means not given)."""
+    names = {f.name for f in dataclasses.fields(cfg)}
+    updates = {k: v for k, v in vars(args).items() if k in names and v is not None}
+    return dataclasses.replace(cfg, **updates)

@@ -1,17 +1,32 @@
 """Procedural synthetic RGB-D scenes for tests and benchmarks.
 
-The reference has no test suite (SURVEY.md §4); our test pyramid needs a scene
-with exact ground truth. A camera inside an axis-aligned textured box gives
-analytically consistent multi-view RGB-D: depth = ray/box exit distance,
-color = smooth 3D texture at the hit point. Every generated batch follows the
-reference per-item dict contract (reference: nerf_loc/datasets/video/
-dataset.py:478-499): image/pose/K/depth/near/far/topk_* fields.
+A camera inside an axis-aligned textured box gives analytically consistent
+multi-view RGB-D: depth = ray/box exit distance, color = smooth 3D texture
+at the hit point. `make_query_batch` builds one in-memory query with the
+per-item dict contract (image/pose/K/depth/near/far/topk_* fields);
+`write_scene` writes a whole scene to disk in the preprocessors' layout
+(PNG frames through data/png.py, info and retrieval pkls, pc.ply), as the
+JAX package's tools/e2e_pose_study.write_scene does.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Dict
 
 import numpy as np
+
+from . import png
+from .ply import write_ply_points
+
+# (texture variant, box half-extent, camera orbit radius scale) of visually
+# distinct scenes
+SCENE_VARIANTS = [
+    (0, 2.0, 1.0),
+    (1, 1.5, 0.9),
+    (2, 2.6, 1.2),
+    (3, 2.2, 0.8),
+]
 
 
 def texture(p: np.ndarray, tex: int = 0) -> np.ndarray:
@@ -125,3 +140,93 @@ def make_query_batch(n_views: int = 5, H: int = 48, W: int = 64,
         "scale_factor": np.float32(1.0),
         "filename": f"synthetic_{seed}",
     }
+
+
+def write_scene(root: str, scene: str = "box", n_train: int = 48, n_test: int = 8,
+                n_support: int = 6, tex: int = 0, box_half: float = 2.0,
+                radius_scale: float = 1.0, orbit_jitter: float = 0.0,
+                H: int = 96, W: int = 128) -> None:
+    """Write `root/scene`: train views on a full circle of an orbit inside
+    the box and test views between them, as H x W RGB PNGs and 16-bit
+    millimetre depth PNGs (each row filtered as libpng chooses by default,
+    png.ADAPTIVE: mostly Paeth in the RGB frames, Up in the depth);
+    info_{train,test}.pkl; the `n_support` nearest
+    train views of each frame (itself excluded for train frames) as
+    image_retrieval_{split}_netvlad.pkl; and pc.ply from a sparse
+    back-projection of every sixth train view."""
+    sd = os.path.join(root, scene)
+    os.makedirs(os.path.join(sd, "seq0"), exist_ok=True)
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    near = 0.25 * box_half
+    far = 2.0 * box_half * np.sqrt(3.0) + 0.1
+    r_eye = 0.3 * radius_scale * box_half / 2.0
+    r_tgt = box_half
+
+    def make_frames(n, split, angle0, step):
+        frames, angles = [], []
+        for i in range(n):
+            ang = angle0 + step * i
+            # orbit_jitter > 0 modulates the orbit's radius and height
+            # (deterministically): depth parallax breaks the near-planar
+            # PnP gauge of a constant-radius orbit
+            rj = 1.0 + orbit_jitter * np.sin(2.39996 * ang + 0.7)
+            hj = 1.0 + 3.0 * orbit_jitter * np.cos(1.61803 * ang)
+            eye = np.array([r_eye * rj * np.cos(ang),
+                            r_eye / 6.0 * hj * np.sin(3 * ang),
+                            r_eye * rj * np.sin(ang)])
+            tgt = np.array([r_tgt * np.cos(ang), 0.0, r_tgt * np.sin(ang)])
+            c2w = look_at_pose(eye, tgt)
+            rgb, depth = render_box_view(c2w, K, H, W, box_half=box_half, tex=tex)
+            img_name = f"{scene}/seq0/{split}_frame{i}.png"
+            dep_name = f"{scene}/seq0/{split}_frame{i}.depth.png"
+            png.write(os.path.join(root, img_name), (rgb * 255).astype(np.uint8),
+                      png.ADAPTIVE)
+            png.write(os.path.join(root, dep_name), (depth * 1000).astype(np.uint16),
+                      png.ADAPTIVE)
+            frames.append({
+                "file_name": img_name,
+                "depth_file_name": dep_name,
+                "extrinsic_Tcw": np.linalg.inv(c2w)[:3],
+                "camera_intrinsic": K,
+                "near": near,
+                "far": far,
+                "sequence_id": "seq0",
+                "frame_id": i,
+            })
+            angles.append(ang)
+        return frames, np.asarray(angles)
+
+    train, a_train = make_frames(n_train, "train", 0.0, 2 * np.pi / n_train)
+    test, a_test = make_frames(n_test, "test", 2 * np.pi / n_train * 0.37,
+                               2 * np.pi / n_test)
+    for split, frames in (("train", train), ("test", test)):
+        with open(os.path.join(sd, f"info_{split}.pkl"), "wb") as fh:
+            pickle.dump(frames, fh)
+
+    def nearest_train(ang, exclude=None):
+        d = np.abs(np.angle(np.exp(1j * (a_train - ang))))
+        order = [j for j in np.argsort(d) if train[j]["file_name"] != exclude]
+        return [train[j]["file_name"] for j in order[:n_support]]
+
+    retrieval = {fr["file_name"]: nearest_train(ang, fr["file_name"])
+                 for fr, ang in zip(train, a_train)}
+    retrieval.update({fr["file_name"]: nearest_train(ang) for fr, ang in zip(test, a_test)})
+    for split in ("train", "test"):
+        with open(os.path.join(sd, f"image_retrieval_{split}_netvlad.pkl"), "wb") as fh:
+            pickle.dump(retrieval, fh)
+
+    pts = []
+    h, w = 24, 32
+    for fr in train[::6]:
+        c2w = np.linalg.inv(np.vstack([fr["extrinsic_Tcw"], [0, 0, 0, 1]]))
+        _, depth = render_box_view(c2w, K, h, w, box_half=box_half, tex=tex)
+        f2 = K.copy()
+        f2[0] *= w / W
+        f2[1] *= h / H
+        u, v = np.meshgrid(np.arange(w), np.arange(h))
+        x = (u - f2[0, 2]) / f2[0, 0] * depth
+        y = (v - f2[1, 2]) / f2[1, 1] * depth
+        pc = np.stack([x, y, depth], -1).reshape(-1, 3)
+        pts.append(pc @ c2w[:3, :3].T + c2w[:3, 3])
+    write_ply_points(os.path.join(sd, "pc.ply"), np.concatenate(pts))

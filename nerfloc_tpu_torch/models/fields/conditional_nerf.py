@@ -17,6 +17,12 @@ f32, and the fused aggregation takes bf16 mv_agg and neighbour features
 (its bf16 instantiation). With cfg.use_scene_coord_memorization the
 descriptors add the coordinate heads' MLP of the frequency-embedded point.
 
+The neighbour aggregation on the card is always the fused kernel
+(ops/fused_agg.py, the port of the JAX package's Pallas kernel): it is the
+port's form of that step on CUDA, whatever `render.fused_query_agg` says.
+On the CPU the flag picks between the reference's two formulations, the
+fused one's plain version and the unfused modules, as in JAX.
+
 Render options that are off by default (`knn_mode` 'ray'/'flat', the merged
 table, view pruning, int8 tables, one-hot geometry assembly) are not
 ported: `build_scene_context` and `render_rays` raise NotImplementedError
@@ -273,7 +279,7 @@ class ConditionalNeRF(nn.Module):
             direction = nb_dir[:, 0, :]
         scale = ctx.sv.far - ctx.sv.near
 
-        if self.cfg.render.fused_query_agg:
+        if self.cfg.render.fused_query_agg or xyz.is_cuda:
             params = extract_agg_params(self, nb_feat.shape[-1])
             feature_agg = fused_neighbor_agg(xyz, direction.contiguous(), mv_agg,
                                              nb_xyz, nb_dir, nb_feat, scale,
@@ -419,7 +425,7 @@ class ConditionalNeRF(nn.Module):
 
         One projection of all R*S samples serves knn_proj, the multiview
         aggregation and the validity mask; the neighbour aggregation is one
-        fused_agg launch at N = R*S, K = 8 (render.fused_query_agg).
+        fused_agg launch at N = R*S, K = 8 on the card.
         Returns rgb [R,3], depth [R], weights [R,S], mask [R] (more than
         min(8, S//2) samples seen by two or more views), depth_uncertainty
         [R], depth_coarse [R] (guided), beta [R] (train) and feat [R,C]

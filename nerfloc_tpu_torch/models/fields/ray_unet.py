@@ -43,6 +43,7 @@ class ConvBlock(nn.Module):
                  dtype: torch.dtype = F32):
         super().__init__()
         self.dtype = dtype
+        self.transpose = transpose
         if transpose:
             self.conv = nn.ConvTranspose1d(cin, cout, 3, stride=2, padding=1,
                                            output_padding=1)
@@ -51,7 +52,20 @@ class ConvBlock(nn.Module):
         self.ln = LayerNormSC(samples, cout)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.elu(self.ln(conv(self.conv, x, self.dtype)))
+        if self.transpose and x.shape[-1] == 0:
+            # the deepest level of a ray with S < 8 samples is empty; the JAX
+            # package's transposed convolution (padding (1, 2)) still gives
+            # one sample there, its bias: the first output of a zero input
+            x = conv(self.conv, x.new_zeros(x.shape[:-1] + (1,)), self.dtype)[..., :1]
+        else:
+            x = conv(self.conv, x, self.dtype)
+        return F.elu(self.ln(x))
+
+
+def _pool(h: Tensor) -> Tensor:
+    """Max-pool by 2 along the samples; one sample pools to none (flax's
+    VALID max_pool), where torch's max_pool1d raises."""
+    return F.max_pool1d(h, 2) if h.shape[-1] >= 2 else h[..., :0]
 
 
 class RayUnet(nn.Module):
@@ -74,9 +88,9 @@ class RayUnet(nn.Module):
         if x.shape[1] != self.n_samples:
             raise ValueError(f"RayUnet built for S={self.n_samples}, got {x.shape[1]}")
         x = x.transpose(1, 2)
-        p1 = F.max_pool1d(self.conv1(x), 2)
-        p2 = F.max_pool1d(self.conv2(p1), 2)
-        p3 = F.max_pool1d(self.conv3(p2), 2)
+        p1 = _pool(self.conv1(x))
+        p2 = _pool(self.conv2(p1))
+        p3 = _pool(self.conv3(p2))
         u3 = self.trans_conv3(p3)
         u2 = self.trans_conv2(torch.cat([p2, u3], dim=1))
         u1 = self.trans_conv1(torch.cat([p1, u2], dim=1))

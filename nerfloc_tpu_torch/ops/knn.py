@@ -4,7 +4,10 @@ XLA ops in the JAX package, plain PyTorch here.
 
 Distances use the same expansion as the reference, |q|^2 - 2 q.p + |p|^2
 clamped at 0, with masked points at finfo.max/4; ties go to the lower
-point index, as lax.top_k orders them.
+point index, as lax.top_k orders them. The squared norms are rounded as
+XLA's CPU backend rounds them (`sq_norm`): points back-projected from
+millimetre depth maps sit at near-equal distances, and a last-bit
+difference there reorders neighbours.
 
 The render KNN (`knn_proj`) takes its candidates from a window of the
 featmap grid around each sample's projection in every view. The JAX table
@@ -30,14 +33,25 @@ def topk_first(x: Tensor, k: int, largest: bool = True) -> Tuple[Tensor, Tensor]
     return vals[..., :k], idx[..., :k]
 
 
+def sq_norm(x: Tensor) -> Tensor:
+    """|x|^2 over the last axis, summed left to right with each step one
+    fused multiply-add rounded once to x's dtype: the order and roundings
+    of XLA's CPU reduction of f32 vectors (each fused step in f64, then
+    rounded), on every device, so the CUDA and CPU paths rank neighbours
+    alike."""
+    sq = x.to(torch.float64) ** 2
+    acc = sq[..., 0].to(x.dtype)
+    for i in range(1, x.shape[-1]):
+        acc = (sq[..., i] + acc.to(torch.float64)).to(x.dtype)
+    return acc
+
+
 def knn(queries: Tensor, points: Tensor, K: int,
         points_mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """(squared dists [N, K] ascending, idx [N, K] int64) of the K nearest
     `points` [M, D] to each query [N, D]; masked points are excluded."""
     big = torch.finfo(queries.dtype).max / 4
-    q_sq = torch.sum(queries * queries, dim=-1, keepdim=True)
-    p_sq = torch.sum(points * points, dim=-1)
-    d = q_sq - 2.0 * (queries @ points.T) + p_sq[None, :]
+    d = sq_norm(queries)[:, None] - 2.0 * (queries @ points.T) + sq_norm(points)[None, :]
     d = torch.clamp(d, min=0.0)
     if points_mask is not None:
         d = torch.where(points_mask[None, :], d, torch.full_like(d, big))

@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and host helpers.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xptxas -v` into
@@ -9,6 +9,10 @@ library and read by `build_report`. Nothing is compiled when a module is
 imported. No fast-math flags: the fused aggregation
 evaluates sin/cos of arguments up to 2^9 * offset, which needs the
 accurate libdevice paths.
+
+A host helper `csrc/<name>.cpp` (plain C interface too) is compiled the
+same way with the host's C++ compiler (`$CXX`, else `g++` or `c++`: nvcc's
+own host compiler on a CUDA machine) by `build_host`/`load_host`.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -41,31 +46,52 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def find_cxx() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found ($CXX, g++, c++)")
+
+
+def _library_path(src: Path, flags: List[str]) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return _library_path(CSRC_DIR / f"{name}.cu", NVCC_FLAGS)
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library for this exact source exists.
-    Writes to a temporary name and renames, so concurrent builds never
-    load a half-written file."""
-    out = library_path(name)
+def _compile(compiler: str, flags: List[str], src: Path, report_suffix: str) -> Path:
+    """Compile `src` unless a library for this exact source exists. Writes
+    to a temporary name and renames, so concurrent builds never load a
+    half-written file."""
+    out = _library_path(src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for {src.name}:\n"
+                           f"{proc.stderr}")
+    out.with_suffix(report_suffix).write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu with nvcc (see _compile)."""
+    return _compile(find_nvcc(), NVCC_FLAGS, CSRC_DIR / f"{name}.cu", ".ptxas.txt")
+
+
+def build_host(name: str) -> Path:
+    """Compile the host helper csrc/<name>.cpp (see _compile)."""
+    return _compile(find_cxx(), HOST_FLAGS, CSRC_DIR / f"{name}.cpp", ".cxx.txt")
 
 
 def build_report(name: str) -> str:
@@ -82,11 +108,20 @@ def build_all(names: Iterable[str]) -> List[Path]:
         return list(pool.map(build, names))
 
 
+def _load(key: str, builder) -> ctypes.CDLL:
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(builder()))
+            _loaded[key] = lib
+        return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _loaded[name] = lib
-        return lib
+    return _load(name + ".cu", lambda: build(name))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cpp, building it if needed."""
+    return _load(name + ".cpp", lambda: build_host(name))

@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points refuse to fall back to the CPU on their own, and
+package, nor OpenCV, Pillow, PyYAML or lmdb (the GPU machine has none of
+them), its entry points refuse to fall back to the CPU on their own, and
 chip_smoke.py fails without a GPU (and without the rest of the repo).
 
 Imports are checked by parsing the sources: the test process itself has
@@ -18,7 +19,8 @@ import torch
 from nerfloc_tpu_torch import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerfloc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerfloc_tpu", "cv2", "PIL", "yaml",
+             "lmdb")
 
 
 def _port_sources():
