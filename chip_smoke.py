@@ -102,6 +102,27 @@ Phases (any failure exits non-zero):
      the epoch outside the step, eval ms/query, the PNG decoder's ms per
      480x640 Paeth frame, and the exact-KNN calls of the steps timed with
      ops/knn's squared norms and with plain f32 ones.
+ 15. the per-scene fine-tune configurations on files, bf16, full width:
+     two object scenes written by data.synthetic.write_object_scene in
+     OnePose's layout at 512x512 (20 train and 2 test frames each; float32
+     MVS depth as TIFF), one 12-Scenes-layout scene written by
+     write_twelve_scenes_scene (1296x968 JPEG colour frames, 640x480 depth
+     PNGs), each config with only dataset_type, scenes and max_epochs: 1
+     (and the test switches) replaced: (a) cli.train at
+     configs/onepose_all.yaml (appearance on, V=5); (b) cli.train at
+     configs/onepose/0447.yaml with --ckpt at (a)'s checkpoints (no
+     appearance, coordinate heads, V=16 coreset FPS, N_rand 512, object
+     masks): the warm start's fresh tensors exactly the 12 of the
+     coordinate heads, exactly 3 bf16 and 0 f32 launches per step, losses
+     finite, the same batches with no loader, the loader-wait share, peak
+     memory; (c) cli.test on (b) with cascade, refinement, vis_3d_box and
+     the trajectory: exactly 55 bf16 launches per query, each box PNG
+     decoded and equal to the box drawn at the predicted pose, a finite
+     table; (d) cli.train at configs/12scenes/apt1_kitchen.yaml without
+     --ckpt (its YAML ckpt: unread), then cli.test (2 launches per query);
+     host ms per JPEG decode (helper, decode_py), per 512x512 float32 TIFF
+     read per compression, per compute_target_mask and per item; no cv2,
+     PIL, yaml or tifffile module loaded.
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result.
@@ -136,6 +157,12 @@ EVAL_WARMUP, EVAL_QUERIES = 2, 5
 # frame for n_views_test
 CLI_H, CLI_W, CLI_TRAIN, CLI_TEST, CLI_SUPPORT = 480, 640, 16, 2, 10
 CLI_SCENES = ("box0", "box1")
+# phase 15: two OnePose-layout objects at OnePose's 512x512 and one
+# 12-Scenes-layout scene at its 1296x968 colour frames; 20 train and 2 test
+# frames each
+FT_OBJECTS = ("0447-synthetic-box", "0450-synthetic-box")
+FT_JPEG_SCENE = "apt1/kitchen"
+FT_OBJ_HW, FT_TRAIN, FT_TEST, FT_SUPPORT = 512, 20, 2, 10
 ATOL = RTOL = 1e-4       # f32 kernel vs plain version (different sum orders)
 # bf16 kernel vs its plain version: both round to bf16 at the same points
 # and differ in the order of their f32 sums, which moves a value across a
@@ -1647,12 +1674,11 @@ def clis_on_files(dev, card: str):
     import torch
     from nerfloc_tpu_torch.cli import test as cli_test
     from nerfloc_tpu_torch.cli import train as cli_train
-    from nerfloc_tpu_torch.configs import compute_dtype_of, load_config, load_yaml
+    from nerfloc_tpu_torch.configs import compute_dtype_of, load_config
     from nerfloc_tpu_torch.data import build_dataset, png
     from nerfloc_tpu_torch.data.prefetch import BatchLoader
     from nerfloc_tpu_torch.data.synthetic import SCENE_VARIANTS, write_scene
     from nerfloc_tpu_torch.train.checkpoint import discover_best_dirs
-    repo = os.path.dirname(os.path.abspath(__file__))
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         t0 = time.perf_counter()
@@ -1672,22 +1698,11 @@ def clis_on_files(dev, card: str):
               f"{CLI_H}x{CLI_W} in {time.perf_counter() - t0:.2f} s, rows filtered per row as "
               f"libpng's adaptive choice: rows of filter type 0-4 "
               f"{rows['rgb'].tolist()} (RGB), {rows['depth'].tolist()} (depth)")
-        data = load_yaml(os.path.join(repo, "nerfloc_tpu_torch", "configs", "data",
-                                      "video_7scenes.yaml"))
-        data.update(base_dir=root, scenes=list(CLI_SCENES))
-        data_path = os.path.join(root, "data.yaml")
-        write_flow_yaml(data_path, data)
-        base_path = os.path.join(repo, "configs", "7scenes_all.yaml")
+        data_path = _write_data_yaml(root, "video_7scenes", CLI_SCENES)
         overrides = {"dataset_type": data_path, "scenes": list(CLI_SCENES), "max_epochs": 1}
         test_overrides = {**overrides, "cascade_matching": True, "optimize_pose": True}
-        paths = {}
-        for kind, ov in (("train", overrides), ("test", test_overrides)):
-            doc = load_yaml(base_path)
-            doc.update(ov)
-            paths[kind] = os.path.join(root, f"{kind}.yaml")
-            write_flow_yaml(paths[kind], doc)
-            if load_config(paths[kind]) != load_config(base_path, ov):
-                fail(f"cli: the written {kind} config is not 7scenes_all.yaml with {ov}")
+        paths = {kind: _write_config(root, kind, "7scenes_all.yaml", ov)
+                 for kind, ov in (("train", overrides), ("test", test_overrides))}
         cfg = load_config(paths["train"])
         if compute_dtype_of(cfg) != torch.bfloat16:
             fail("cli: the config's compute dtype is not bf16")
@@ -1826,6 +1841,282 @@ def clis_on_files(dev, card: str):
                cli_loader_items_per_s_b8=rates[(B8, 8)],
                cli_loader_items_per_s_b8_serial=rates[(B8, 1)],
                knn_sq_norm_ms_train=knn_ms["train"], knn_sq_norm_ms_eval=knn_ms["eval"])
+    return out
+
+
+def _write_data_yaml(root: str, family: str, scenes) -> str:
+    """The port's copy of configs/data/<family>.yaml with base_dir and the
+    scenes pointed at `root`, as one flow document."""
+    from nerfloc_tpu_torch.configs import load_yaml
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data = load_yaml(os.path.join(repo, "nerfloc_tpu_torch", "configs", "data", f"{family}.yaml"))
+    data.update(base_dir=root, scenes=list(scenes))
+    path = os.path.join(root, f"{family}.yaml")
+    write_flow_yaml(path, data)
+    return path
+
+
+def _write_config(root: str, name: str, base: str, overrides: dict) -> str:
+    """configs/<base> with only `overrides` replaced, as one flow document
+    (checked equal to load_config with the overrides)."""
+    from nerfloc_tpu_torch.configs import load_config, load_yaml
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base_path = os.path.join(repo, "configs", base)
+    doc = load_yaml(base_path)
+    doc.update(overrides)
+    path = os.path.join(root, f"{name}.yaml")
+    write_flow_yaml(path, doc)
+    if load_config(path) != load_config(base_path, overrides):
+        fail(f"the written {name} config is not {base} with {overrides}")
+    return path
+
+
+def _train_cli(cli_train, argv, expect: int, what: str, n_items: int):
+    """cli.train.main under a StepProbe; returns the probe."""
+    probe = StepProbe(cli_train, "make_train_step", expect, what, keep_batches=True)
+    try:
+        rc = cli_train.main(argv)
+    finally:
+        probe.restore()
+    if rc != 0 or len(probe.ms) != n_items:
+        fail(f"{what}: rc {rc}, {len(probe.ms)} steps for {n_items} items")
+    return probe
+
+
+def _read_log(run_dir: str, what: str):
+    log = [json.loads(line) for line in open(os.path.join(run_dir, "log.jsonl"))]
+    for rec in log:
+        if "loss" in rec and not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            fail(f"{what}: loss or grad_norm not finite: {rec}")
+    return log
+
+
+def _test_cli(cli_test, argv, expect: int, what: str, n_items: int, out_json: str, scenes):
+    probe = StepProbe(cli_test, "make_eval_step", expect, what)
+    try:
+        rc = cli_test.main(argv)
+    finally:
+        probe.restore()
+    if rc != 0 or len(probe.ms) != n_items:
+        fail(f"{what}: rc {rc}, {len(probe.ms)} queries for {n_items} items")
+    per_scene = json.load(open(out_json))["per_scene"]
+    for name in (*scenes, "avg"):
+        row = per_scene.get(name)
+        if row is None or not all(math.isfinite(v) for v in row.values()):
+            fail(f"{what}: row {name} malformed: {row}")
+    return probe, per_scene
+
+
+def finetune_on_files(dev, card: str):
+    """Phase 15: the per-scene fine-tune configurations through the CLIs
+    on files, bf16, full width (see the module docstring). Returns its
+    numbers."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from nerfloc_tpu_torch.cli import test as cli_test
+    from nerfloc_tpu_torch.cli import train as cli_train
+    from nerfloc_tpu_torch.configs import compute_dtype_of, load_config
+    from nerfloc_tpu_torch.data import build_dataset, jpeg, png, tiff
+    from nerfloc_tpu_torch.data.scene_store import SceneStore
+    from nerfloc_tpu_torch.data.synthetic import write_object_scene, write_twelve_scenes_scene
+    from nerfloc_tpu_torch.data.video_dataset import compute_target_mask
+    from nerfloc_tpu_torch.utils.visualization import draw_box3d
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as root:
+        t0 = time.perf_counter()
+        for i, name in enumerate(FT_OBJECTS):
+            write_object_scene(root, scene=name, n_train=FT_TRAIN, n_test=FT_TEST,
+                               n_support=FT_SUPPORT, H=FT_OBJ_HW, W=FT_OBJ_HW, tex=i + 1)
+        write_twelve_scenes_scene(root, scene=FT_JPEG_SCENE, n_train=FT_TRAIN, n_test=FT_TEST,
+                                  n_support=FT_SUPPORT)
+        print(f"finetune: wrote {len(FT_OBJECTS)} object scenes ({FT_TRAIN}+{FT_TEST} frames, "
+              f"{FT_OBJ_HW}x{FT_OBJ_HW} PNG, float32 depth TIFF, Deflate + floating-point "
+              f"predictor) and a 12-Scenes-layout scene ({FT_TRAIN}+{FT_TEST} 1296x968 JPEG "
+              f"frames, 640x480 depth PNG) in {time.perf_counter() - t0:.2f} s")
+        onepose = _write_data_yaml(root, "video_onepose", FT_OBJECTS)
+        twelve = _write_data_yaml(root, "video_12scenes", [FT_JPEG_SCENE])
+        paths = {
+            "all": _write_config(root, "all", "onepose_all.yaml", {
+                "dataset_type": onepose, "scenes": list(FT_OBJECTS), "max_epochs": 1}),
+            "obj": _write_config(root, "obj", "onepose/0447.yaml", {
+                "dataset_type": onepose, "scenes": [FT_OBJECTS[0]], "max_epochs": 1}),
+            "obj_test": _write_config(root, "obj_test", "onepose/0447.yaml", {
+                "dataset_type": onepose, "scenes": [FT_OBJECTS[0]], "max_epochs": 1,
+                "cascade_matching": True, "optimize_pose": True, "vis_3d_box": True,
+                "vis_trajectory": True, "test_render_interval": 1}),
+            "jpeg": _write_config(root, "jpeg", "12scenes/apt1_kitchen.yaml", {
+                "dataset_type": twelve, "scenes": [FT_JPEG_SCENE], "max_epochs": 1}),
+        }
+        cfgs = {k: load_config(v) for k, v in paths.items()}
+        for k, c in cfgs.items():
+            if compute_dtype_of(c) != torch.bfloat16:
+                fail(f"finetune: {k} does not run at bf16")
+        obj = cfgs["obj"]
+        if obj.encode_appearance or not obj.use_scene_coord_memorization or \
+                obj.n_views_train != 16 or obj.support_image_selection != "coreset" or \
+                obj.render.N_rand != 512:
+            fail(f"finetune: onepose/0447.yaml is not the per-object fine-tune: {obj}")
+
+        # host numbers
+        meta = pickle.load(open(os.path.join(root, FT_JPEG_SCENE, "info_train.pkl"), "rb"))[0]
+        blob = open(os.path.join(root, meta["file_name"]), "rb").read()
+        helper = jpeg.decode(blob)
+        if helper.shape != (968, 1296, 3) or not np.array_equal(jpeg.decode_py(blob), helper):
+            fail("finetune: the JPEG helper and decode_py disagree on a 12-Scenes frame")
+        jpeg_ms = statistics.median(_host_ms(lambda: jpeg.decode(blob)) for _ in range(10))
+        jpeg_py_ms = statistics.median(_host_ms(lambda: jpeg.decode_py(blob)) for _ in range(3))
+        store = SceneStore.load(root, FT_OBJECTS[0])
+        fr = store.train_frames[0]
+        depth = tiff.read(os.path.join(root, fr["depth_file_name"]))
+        tiff_ms = {}
+        for comp, pred, label in ((tiff.DEFLATE, 3, "deflate+fp predictor (the scenes')"),
+                                  (tiff.NONE, 1, "none"), (tiff.LZW, 3, "lzw+fp predictor")):
+            p = os.path.join(root, f"t_{comp}.tiff")
+            tiff.write(p, depth, comp, pred)
+            if not np.array_equal(tiff.read(p), depth):
+                fail(f"finetune: TIFF {label} does not read back")
+            tiff_ms[label] = statistics.median(_host_ms(lambda: tiff.read(p)) for _ in range(10))
+        w2c = np.vstack([fr["extrinsic_Tcw"], [0, 0, 0, 1]])
+        K = np.array([[fr["camera_intrinsic"][0], 0, fr["camera_intrinsic"][2]],
+                      [0, fr["camera_intrinsic"][1], fr["camera_intrinsic"][3]], [0, 0, 1]])
+        mask = compute_target_mask(store.points, K, w2c, depth.shape)
+        if not 0 < mask.sum() < mask.size:
+            fail("finetune: the target mask is empty or full")
+        mask_ms = statistics.median(_host_ms(lambda: compute_target_mask(
+            store.points, K, w2c, depth.shape)) for _ in range(20))
+        item_ms = {}
+        for kind, c in (("obj", obj), ("jpeg", cfgs["jpeg"])):
+            for mode in ("train", "test"):
+                ds = build_dataset(c, mode, mode=mode)
+                item_ms[(kind, mode)] = statistics.median(
+                    _host_ms(lambda i=i: ds[i]) for i in range(min(4, len(ds))))
+                if kind == "obj" and not ds[0]["target_mask"].any():
+                    fail("finetune: an object item without its target mask")
+        print(f"finetune host: JPEG 1296x968 4:2:0 decode {jpeg_ms:.2f} ms (helper, median of "
+              f"10), {jpeg_py_ms:.2f} ms (decode_py, median of 3); {FT_OBJ_HW}x{FT_OBJ_HW} float32 "
+              f"TIFF read "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in tiff_ms.items())
+              + f" (median of 10); compute_target_mask {mask_ms:.2f} ms (median of 20, "
+              f"{len(store.points)} points); items (median of 4): object train "
+              f"{item_ms[('obj', 'train')]:.2f} ms, test {item_ms[('obj', 'test')]:.2f} ms "
+              f"(V=16: 17 frames and the probe read), 12-Scenes JPEG train "
+              f"{item_ms[('jpeg', 'train')]:.2f} ms, test {item_ms[('jpeg', 'test')]:.2f} ms "
+              f"(V={cfgs['jpeg'].n_views_train}/{cfgs['jpeg'].n_views_test}); {card}")
+
+        # (a) the multi-object run
+        runs = os.path.join(root, "runs")
+        n_all = len(FT_OBJECTS) * FT_TRAIN
+        probe = _train_cli(cli_train, ["--config", paths["all"], "--basedir", runs,
+                                       "--eval_interval", "1", "--train_render_views", "1",
+                                       "--device", "cuda"], 3, "finetune (a) step", n_all)
+        all_dir = os.path.join(runs, cfgs["all"].expname, cfgs["all"].version)
+        _read_log(all_dir, "finetune (a)")
+        all_ckpts = os.path.join(all_dir, "ckpts")
+        a_ms = statistics.median(probe.ms)
+        print(f"finetune (a): onepose_all.yaml, {len(probe.ms)} steps at V=5, exactly "
+              f"{probe.launches[-1]} bf16 launches each, median {a_ms:.2f} ms/step; {card}")
+
+        # (b) the per-object fine-tune, warm-started from (a)
+        torch.cuda.reset_peak_memory_stats()
+        probe = _train_cli(cli_train, ["--config", paths["obj"], "--basedir", runs,
+                                       "--ckpt", all_ckpts, "--eval_interval", "1",
+                                       "--train_render_views", "1", "--device", "cuda"],
+                           3, "finetune (b) step", FT_TRAIN)
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        obj_dir = os.path.join(runs, obj.expname, obj.version)
+        log = _read_log(obj_dir, "finetune (b)")
+        ws = [r for r in log if "warm_start" in r]
+        heads = ("model_3d.coord_desc_mlp_coarse", "model_3d.coord_desc_mlp_fine")
+        if len(ws) != 1 or len(ws[0]["fresh"]) != 12 or \
+                not all(k.startswith(heads) for k in ws[0]["fresh"]):
+            fail(f"finetune (b): the warm start's fresh tensors are not the coordinate "
+                 f"heads': {ws}")
+        losses = [r["loss"] for r in log if "loss" in r]
+        ft_ms = statistics.median(probe.ms)
+        epoch_s = (sum(probe.ms) + sum(probe.gaps)) / 1e3
+        wait_share = sum(probe.gaps) / 1e3 / epoch_s
+        ft_launches = probe.launches[-1]
+        alone_ms = _step_alone_ms(obj, probe.batches, dev)
+        probe.batches.clear()
+        print(f"finetune (b): onepose/0447.yaml with --ckpt (a): restored {ws[0]['restored']} "
+              f"tensors, fresh exactly the 12 of the coordinate heads; {len(probe.ms)} steps "
+              f"at V=16 (coreset FPS), N_rand 512, exactly {ft_launches} bf16 launches and 0 "
+              f"f32 each; losses finite ({losses}); median {ft_ms:.2f} ms/step (min "
+              f"{min(probe.ms):.2f}, max {max(probe.ms):.2f}); outside the step {wait_share:.4f} "
+              f"of {epoch_s:.2f} s; the same batches with no loader {alone_ms:.2f} ms/step; "
+              f"peak {peak_train:.2f} GiB; {card}")
+
+        # (c) the test CLI with everything on
+        out_json = os.path.join(root, "eval", "results.json")
+        torch.cuda.reset_peak_memory_stats()
+        probe, table = _test_cli(cli_test, ["--config", paths["obj_test"], "--ckpt",
+                                            os.path.join(obj_dir, "ckpts"), "--out", out_json,
+                                            "--device", "cuda"],
+                                 EVAL_LAUNCHES, "finetune (c) query", FT_TEST, out_json,
+                                 [FT_OBJECTS[0]])
+        peak_eval = torch.cuda.max_memory_allocated() / 2**30
+        ft_eval_ms = statistics.median(probe.ms)
+        ft_eval_launches = probe.launches[-1]
+        poses = pickle.load(open(os.path.join(root, "eval", "trajectory.pkl"), "rb"))["poses_pred"]
+        test_ds = build_dataset(load_config(paths["obj_test"]), "test", mode="test")
+        in_view = 0
+        for i in range(FT_TEST):
+            p = os.path.join(root, "eval", f"box_{i:05d}.png")
+            if not os.path.exists(p):
+                fail(f"finetune (c): {p} not written")
+            item = test_ds[i]
+            img = (np.asarray(item["image"]) * 255).astype(np.uint8)
+            over = png.read(p)
+            want = draw_box3d(img, item["bbox3d_corners"][:8], item["K"], poses[i])
+            if not np.array_equal(over, want):
+                fail(f"finetune (c): {p} is not the box at the predicted pose")
+            green = (over[..., 0] == 0) & (over[..., 1] == 255) & (over[..., 2] == 0)
+            in_view += bool(green.any())
+            at_gt = draw_box3d(img, item["bbox3d_corners"][:8], item["K"], item["pose"])
+            if not ((at_gt[..., 1] == 255) & (at_gt[..., 0] == 0)).any():
+                fail(f"finetune (c): item {i}'s box is not in view at its true pose")
+        print(f"finetune (c): cli.test with cascade, refinement and vis_3d_box, {len(probe.ms)} "
+              f"queries at V=16, exactly {probe.launches[-1]} bf16 launches each; median "
+              f"{ft_eval_ms:.2f} ms/query; {FT_TEST} box PNGs decoded, each the box at the "
+              f"predicted pose ({in_view} with box pixels in view; random weights); peak "
+              f"{peak_eval:.2f} GiB; table {json.dumps(table)}; {card}")
+
+        # (d) the 12-Scenes JPEG scene without --ckpt
+        jcfg = cfgs["jpeg"]
+        yaml_ckpt = jcfg.ckpt
+        existed = os.path.exists(yaml_ckpt)
+        probe = _train_cli(cli_train, ["--config", paths["jpeg"], "--basedir", runs,
+                                       "--eval_interval", "1", "--train_render_views", "1",
+                                       "--device", "cuda"], 3, "finetune (d) step", FT_TRAIN)
+        jpeg_dir = os.path.join(runs, jcfg.expname, jcfg.version)
+        jlog = _read_log(jpeg_dir, "finetune (d)")
+        if any("warm_start" in r for r in jlog) or (not existed and os.path.exists(yaml_ckpt)):
+            fail(f"finetune (d): cli.train read the YAML's ckpt: {yaml_ckpt}")
+        jpeg_ms_step = statistics.median(probe.ms)
+        jpeg_launches = probe.launches[-1]
+        out_json = os.path.join(root, "eval_jpeg", "results.json")
+        probe, jtable = _test_cli(cli_test, ["--config", paths["jpeg"], "--ckpt",
+                                             os.path.join(jpeg_dir, "ckpts"), "--out", out_json,
+                                             "--device", "cuda"],
+                                  2, "finetune (d) query", FT_TEST, out_json, [FT_JPEG_SCENE])
+        print(f"finetune (d): 12scenes/apt1_kitchen.yaml without --ckpt (its ckpt: "
+              f"{yaml_ckpt} unread, trained from the fresh init), {FT_TRAIN} steps on JPEG frames "
+              f"at V={jcfg.n_views_train}, exactly {jpeg_launches} bf16 launches each, median "
+              f"{jpeg_ms_step:.2f} ms/step; cli.test {len(probe.ms)} queries, exactly "
+              f"{probe.launches[-1]} bf16 launches each, median {statistics.median(probe.ms):.2f} "
+              f"ms/query; table {json.dumps(jtable)}; {card}")
+    loaded = [m for m in ("cv2", "PIL", "yaml", "tifffile") if m in sys.modules]
+    if loaded:
+        fail(f"finetune: {loaded} were imported")
+    out.update(ft_train_ms_per_step=ft_ms, ft_train_launches_per_step=ft_launches,
+               ft_train_ms_alone=alone_ms, ft_loader_wait_share=wait_share,
+               ft_eval_ms_per_query=ft_eval_ms, ft_eval_launches_per_query=ft_eval_launches,
+               ft_peak_train_gib=peak_train, ft_peak_eval_gib=peak_eval,
+               jpeg_decode_ms=jpeg_ms, jpeg_decode_py_ms=jpeg_py_ms, tiff_read_ms=tiff_ms,
+               target_mask_ms=mask_ms, jpeg_train_ms_per_step=jpeg_ms_step)
     return out
 
 
@@ -1982,9 +2273,16 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
 
+    # every source at once: one nvcc per kernel, the host helpers (PNG
+    # unfilter, JPEG decode and TIFF LZW) with the host's C++ compiler
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    native.build_all(["fused_agg"])
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = [pool.submit(native.build_all, ["fused_agg"])] + \
+            [pool.submit(native.build_host, h) for h in ("png_unfilter", "jpeg_decode")]
+        for job in jobs:
+            job.result()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, and the host helpers)")
     for line in native.build_report("fused_agg").splitlines():
         if ("ptxas" in line or "spill" in line) and "Compile time" not in line:
             print(f"build report: {line.strip()}")
@@ -2046,6 +2344,7 @@ def main() -> int:
     train16 = train_full_width(dev, card, torch.bfloat16)
     evals16 = eval_full_width(dev, card, torch.bfloat16)
     cli = clis_on_files(dev, card)
+    ft = finetune_on_files(dev, card)
     print(f"train step, full width: f32 {train['train_ms_per_step']:.2f} ms/step (peak "
           f"{train['train_peak_gib']:.2f} GiB), bf16 {train16['train_ms_per_step']:.2f} ms/step "
           f"(peak {train16['train_peak_gib']:.2f} GiB); eval query: f32 "
@@ -2068,7 +2367,9 @@ def main() -> int:
                 "refine_launches_per_query": evals16["refine_launches_per_query"],
                 **steps_agg,
                 "cli_train_launches_per_step": cli["cli_train_launches_per_step"],
-                "cli_eval_launches_per_query": cli["cli_eval_launches_per_query"]}]
+                "cli_eval_launches_per_query": cli["cli_eval_launches_per_query"],
+                "finetune_train_launches_per_step": ft["ft_train_launches_per_step"],
+                "finetune_eval_launches_per_query": ft["ft_eval_launches_per_query"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

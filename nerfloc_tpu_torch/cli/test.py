@@ -5,8 +5,10 @@ kept one, else the latest), runs the localization pipeline over the test
 split (matching, PnP, the cascade and photometric refinement when the
 config or flags ask for them) and reports per-scene median
 rotation/translation errors and pose accuracy; optionally dumps the
-trajectory and renders test views for PSNR (PNGs through data/png.py).
-One device; `--ray_shards > 1` and `vis_3d_box` raise NotImplementedError.
+trajectory, the OnePose 3D box overlays (`vis_3d_box`: box_<i>.png every
+test_render_interval items of an object scene, the box drawn at the
+predicted pose) and renders test views for PSNR (PNGs through
+data/png.py). One device; `--ray_shards > 1` raises NotImplementedError.
 
 Usage:
   python -m nerfloc_tpu_torch.cli.test --config configs/7scenes_all.yaml \
@@ -34,7 +36,7 @@ from ..train.checkpoint import (DEFAULT_METRIC_MODES, CheckpointManager, discove
 from ..train.evaluate import eval_dataset
 from ..train.step import make_eval_step
 from ..utils.common import colorize_depth
-from ..utils.visualization import dump_trajectory
+from ..utils.visualization import draw_box3d, dump_trajectory
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -87,8 +89,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError("--ray_shards > 1: the ray-sharded render is not ported")
     dev = resolve_device(args.device)
     cfg = override_cfg_with_args(load_config(args.config), args)
-    if cfg.vis_3d_box:
-        raise NotImplementedError("vis_3d_box: the 3D box overlay is not ported")
 
     test_ds = build_dataset(cfg, "test", mode="test")
     scene_names = dict(enumerate(test_ds.scene_names()))
@@ -99,7 +99,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     eval_step = make_eval_step(model, cfg)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     results = eval_dataset(test_ds, eval_step, 1, scene_names, cfg, device=dev,
-                           generator=generator, collect_poses=cfg.vis_trajectory)
+                           generator=generator,
+                           collect_poses=cfg.vis_trajectory or cfg.vis_3d_box)
 
     poses = results.pop("_poses", None)
     out_dir = os.path.dirname(args.out) if args.out else "eval_out"
@@ -107,6 +108,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         pts = test_ds.datasets[0].store.points if test_ds.datasets else None
         dump_trajectory(os.path.join(out_dir, "trajectory.pkl"), poses["filenames"],
                         poses["poses_pred"], poses["poses_gt"], pts)
+    if cfg.vis_3d_box:
+        write_box_overlays(test_ds, poses["poses_pred"], cfg.test_render_interval, out_dir)
     if cfg.vis_rendering:
         render = render_eval(model, cfg, test_ds, out_dir if args.out else "renders")
         results["render"] = render
@@ -121,6 +124,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(args.out, "w") as f:
             json.dump({"per_scene": results}, f)
     return 0
+
+
+def write_box_overlays(test_ds, poses_pred: np.ndarray, interval: int, out_dir: str) -> List[str]:
+    """box_<i>.png for every `interval`-th test item of an object scene:
+    its image with the object's 3D box drawn at the predicted pose."""
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    for i in range(0, len(test_ds), max(interval, 1)):
+        item = test_ds[i]
+        if "bbox3d_corners" not in item:
+            continue
+        img = (np.asarray(item["image"]) * 255).astype(np.uint8)
+        over = draw_box3d(img, np.asarray(item["bbox3d_corners"])[:8], np.asarray(item["K"]),
+                          poses_pred[i])
+        path = os.path.join(out_dir, f"box_{i:05d}.png")
+        png.write(path, over)
+        written.append(path)
+    return written
 
 
 @torch.no_grad()

@@ -2,8 +2,10 @@
 
 Config merge and flag overrides, dataset and loader construction,
 auto-resume from the run's latest checkpoint, an optional warm start from
-cfg.ckpt (`--ckpt` or the YAML's `ckpt:`; a shape-matched partial restore,
-so new heads keep their fresh weights), the epoch loop with a periodic
+the `--ckpt` flag only, as the JAX CLI warm-starts (a shape-matched partial
+restore of the parameters: new heads keep their fresh weights, the Adam
+moments start fresh; a directory with nothing under it leaves the fresh
+init, and the YAML's `ckpt:` is not read), the epoch loop with a periodic
 eval (the per-scene table and the render PSNR of a few test views), and
 metric-keyed checkpoints. The model runs at compute_dtype_of(cfg), B
 queries per step on one device; the step's noise comes from a
@@ -29,7 +31,8 @@ from ..data import build_dataset
 from ..data.prefetch import BatchLoader
 from ..device import resolve_device
 from ..models.pose_estimator import NerfPoseEstimator, to_device_batch
-from ..train.checkpoint import DEFAULT_METRIC_MODES, CheckpointManager, partial_restore
+from ..train.checkpoint import (DEFAULT_METRIC_MODES, CheckpointManager, partial_restore,
+                                restorable)
 from ..train.evaluate import eval_dataset, make_render_psnr_fn, render_psnr_eval
 from ..train.state import TrainState
 from ..train.step import make_eval_step, make_train_step
@@ -86,12 +89,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     if latest is not None:
         state.load_state_dict(mgr.restore(latest))
         print(f"resumed from step {latest}")
-    elif cfg.ckpt:
-        restored = CheckpointManager(cfg.ckpt).restore() if os.path.isdir(cfg.ckpt) else None
+    elif args.ckpt:
+        restored = CheckpointManager(args.ckpt).restore()
         if restored is None:
-            raise FileNotFoundError(f"no checkpoint to warm-start from under {cfg.ckpt}")
-        model.load_state_dict(partial_restore(model.state_dict(), restored["model"]))
-        print(f"warm-started from {cfg.ckpt}")
+            print(f"nothing to warm-start from under {args.ckpt}: training from the fresh init")
+        else:
+            taken = set(restorable(model.state_dict(), restored["model"]))
+            model.load_state_dict(partial_restore(model.state_dict(), restored["model"]))
+            print(f"warm-started from {args.ckpt}")
+            _log(log_path, {"warm_start": args.ckpt, "restored": len(taken),
+                            "fresh": sorted(k for k in model.state_dict() if k not in taken)})
 
     train_step = make_train_step(model, cfg)
     eval_step = make_eval_step(model, cfg)

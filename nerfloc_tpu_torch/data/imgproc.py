@@ -17,6 +17,10 @@ arithmetic (the JAX package's transforms call OpenCV; the port has none).
                      values land one level apart
   rgb_to_hsv,        cv2.cvtColor RGB<->HSV for uint8 (H in [0, 180)); the
   hsv_to_rgb         way back rounds as OpenCV's vector and scalar loops do
+  fill_poly          cv2.fillPoly of one polygon, 8-connected, shift 0, as
+                     OpenCV 5 scan-converts it (concave polygons that cross
+                     the image border excepted)
+  line               cv2.line at the default line type, any thickness
 """
 from __future__ import annotations
 
@@ -309,3 +313,357 @@ def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
     rgb = np.stack([bgr[2], bgr[1], bgr[0]], axis=-1) * f32(255.0)
     rgb = np.where(vec[..., None], np.floor(rgb), np.rint(rgb))
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+# -- rasterizers (OpenCV's drawing.cpp at the default 8-connected line type) ----------
+
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+
+
+def _clip_line(w: int, h: int, p1, p2):
+    """cv::clipLine on an image of w x h: (inside, p1, p2), the ends moved
+    as OpenCV moves them (also where it then finds no part inside).
+    Integer coordinates (any scale)."""
+    x1, y1 = p1
+    x2, y2 = p2
+    right, bottom = w - 1, h - 1
+    if w <= 0 or h <= 0:
+        return False, p1, p2
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * float(x2 - x1) / float(y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * float(x2 - x1) / float(y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * float(y2 - y1) / float(x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * float(y2 - y1) / float(x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line_points(w: int, h: int, p1, p2) -> np.ndarray:
+    """cv::LineIterator(img, p1, p2, 8, leftToRight=true): the pixels of an
+    8-connected integer line, clipped to the image; [n, 2] (x, y)."""
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        inside, p1, p2 = _clip_line(w, h, p1, p2)
+        if not inside:
+            return np.zeros((0, 2), np.int64)
+    (x1, y1), (x2, y2) = p1, p2
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:
+        dx, dy = -dx, -dy
+        x1, y1 = x2, y2
+    sy = 1 if dy >= 0 else -1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    n = major + 1
+    # a step along the minor axis wherever err < 0 before the update: err
+    # starts at major - 2 minor and moves by 2 major - 2 minor after such a
+    # step, by -2 minor after another
+    steps = np.zeros(n, np.int64)
+    e, m = major - 2 * minor, 0
+    for i in range(n - 1):
+        if e < 0:
+            m += 1
+            e += 2 * major - 2 * minor
+        else:
+            e -= 2 * minor
+        steps[i + 1] = m
+    t = np.arange(n)
+    if vert:
+        xs, ys = x1 + steps, y1 + sy * t
+    else:
+        xs, ys = x1 + t, y1 + sy * steps
+    return np.stack([xs, ys], 1)
+
+
+def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
+    img[y, x1:x2 + 1] = color
+
+
+def _fill_convex_poly(img: np.ndarray, v, color) -> None:
+    """cv::FillConvexPoly (drawing.cpp) at the 8-connected line type; v:
+    [n, 2] int vertices in XY_SHIFT fixed point (as ThickLine gives it)."""
+    H, W = img.shape[:2]
+    npts = len(v)
+    delta = XY_ONE >> 1
+    p0 = v[-1]
+    xmin = xmax = v[0][0]
+    ymin = ymax = v[0][1]
+    imin = 0
+    for i in range(npts):
+        p = v[i]
+        if p[1] < ymin:
+            ymin, imin = p[1], i
+        ymax, xmax, xmin = max(ymax, p[1]), max(xmax, p[0]), min(xmin, p[0])
+        _line2(img, p0, p, color)
+        p0 = p
+    xmin, xmax = (xmin + delta) >> XY_SHIFT, (xmax + delta) >> XY_SHIFT
+    ymin, ymax = (ymin + delta) >> XY_SHIFT, (ymax + delta) >> XY_SHIFT
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= W or ymin >= H:
+        return
+    ymax = min(ymax, H - 1)
+    edge = [{"idx": imin, "di": 1, "x": -XY_ONE, "dx": 0, "ye": ymin},
+            {"idx": imin, "di": npts - 1, "x": -XY_ONE, "dx": 0, "ye": ymin}]
+    edges = npts
+    y = ymin
+    while True:
+        for e in edge:
+            if y >= e["ye"]:
+                idx0 = e["idx"]
+                idx = (idx0 + e["di"]) % npts
+                while edges > 0:
+                    edges -= 1
+                    ty = (v[idx][1] + delta) >> XY_SHIFT
+                    if ty > y:
+                        xs, xe = v[idx0][0], v[idx][0]
+                        e["ye"] = ty
+                        e["dx"] = _cdiv((xe - xs) * 2 + (ty - y), 2 * (ty - y))
+                        e["x"] = xs
+                        e["idx"] = idx
+                        break
+                    idx0 = idx
+                    idx = (idx + e["di"]) % npts
+                else:
+                    edges -= 1
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (1, 0) if edge[0]["x"] > edge[1]["x"] else (0, 1)
+            xx1 = (edge[left]["x"] + delta) >> XY_SHIFT
+            xx2 = (edge[right]["x"] + delta) >> XY_SHIFT
+            if xx2 >= 0 and xx1 < W:
+                _hline(img, y, max(xx1, 0), min(xx2, W - 1), color)
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _line2(img: np.ndarray, p1, p2, color) -> None:
+    """cv::Line2: a line between XY_SHIFT fixed-point ends."""
+    H, W = img.shape[:2]
+    inside, (x1, y1), (x2, y2) = _clip_line(W << XY_SHIFT, H << XY_SHIFT, p1, p2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    pts = []
+    if ax > ay:
+        if dx < 0:
+            x1, y1, x2, y2 = x2, y2, x1, y1
+            dy = -dy
+        x_step, y_step = XY_ONE, _cdiv(dy << XY_SHIFT, ax | 1)
+        ecount = (x2 - x1) >> XY_SHIFT
+    else:
+        if dy < 0:
+            x1, y1, x2, y2 = x2, y2, x1, y1
+            dx = -dx
+        x_step, y_step = _cdiv(dx << XY_SHIFT, ay | 1), XY_ONE
+        ecount = (y2 - y1) >> XY_SHIFT
+    x1 += XY_ONE >> 1
+    y1 += XY_ONE >> 1
+    pts.append(((x2 + (XY_ONE >> 1)) >> XY_SHIFT, (y2 + (XY_ONE >> 1)) >> XY_SHIFT))
+    if ax > ay:
+        x1 >>= XY_SHIFT
+        while ecount >= 0:
+            pts.append((x1, y1 >> XY_SHIFT))
+            x1 += 1
+            y1 += y_step
+            ecount -= 1
+    else:
+        y1 >>= XY_SHIFT
+        while ecount >= 0:
+            pts.append((x1 >> XY_SHIFT, y1))
+            x1 += x_step
+            y1 += 1
+            ecount -= 1
+    for x, y in pts:
+        if 0 <= x < W and 0 <= y < H:
+            img[y, x] = color
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (truncation toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int, color) -> None:
+    """cv::Circle with fill, as ThickLine rounds a line's ends."""
+    H, W = img.shape[:2]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    inside = radius <= cx < W - radius and radius <= cy < H - radius
+    while dx >= dy:
+        y11, y12, y21, y22 = cy - dy, cy + dy, cy - dx, cy + dx
+        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
+        if inside:
+            for yy, a, b in ((y11, x11, x12), (y12, x11, x12), (y21, x21, x22), (y22, x21, x22)):
+                _hline(img, yy, a, b, color)
+        elif x11 < W and x12 >= 0 and y21 < H and y22 >= 0:
+            x11, x12 = max(x11, 0), min(x12, W - 1)
+            for yy in (y11, y12):
+                if 0 <= yy < H:
+                    _hline(img, yy, x11, x12, color)
+            if x21 < W and x22 >= 0:
+                x21, x22 = max(x21, 0), min(x22, W - 1)
+                for yy in (y21, y22):
+                    if 0 <= yy < H:
+                        _hline(img, yy, x21, x22, color)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = 0 if err <= 0 else -1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def line(img: np.ndarray, p, q, color, thickness: int = 1) -> np.ndarray:
+    """cv2.line(img, p, q, color, thickness) in place, at the default
+    8-connected line type, shift 0: thickness 1 is the 8-connected line
+    (LineIterator), a thicker one a filled quadrilateral in 16-bit fixed
+    point (FillConvexPoly) with a filled circle at each end (ThickLine)."""
+    p = (int(p[0]), int(p[1]))
+    q = (int(q[0]), int(q[1]))
+    H, W = img.shape[:2]
+    if thickness > 1:
+        # the ends are first clipped to the image grown by the thickness
+        t = thickness
+        inside, p, q = _clip_line(W + 2 * t, H + 2 * t, (p[0] + t, p[1] + t), (q[0] + t, q[1] + t))
+        if not inside:
+            return img
+        p, q = (p[0] - t, p[1] - t), (q[0] - t, q[1] - t)
+    color = np.atleast_1d(np.asarray(color, img.dtype))[: img.shape[2] if img.ndim == 3 else 1]
+    if img.ndim == 2:
+        color = color[0]
+    if thickness <= 1:
+        pts = _line_points(W, H, p, q)
+        img[pts[:, 1], pts[:, 0]] = color
+        return img
+    p0 = (p[0] << XY_SHIFT, p[1] << XY_SHIFT)
+    p1 = (q[0] << XY_SHIFT, q[1] << XY_SHIFT)
+    dx = (p0[0] - p1[0]) / XY_ONE
+    dy = (p1[1] - p0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    th = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (th + odd * XY_ONE * 0.5) / np.sqrt(r)
+        dpx, dpy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        quad = [(p0[0] + dpx, p0[1] + dpy), (p0[0] - dpx, p0[1] - dpy),
+                (p1[0] - dpx, p1[1] - dpy), (p1[0] + dpx, p1[1] + dpy)]
+        _fill_convex_poly(img, quad, color)
+    for end in (p0, p1):
+        _circle_filled(img, (end[0] + (XY_ONE >> 1)) >> XY_SHIFT,
+                       (end[1] + (XY_ONE >> 1)) >> XY_SHIFT,
+                       (th + (XY_ONE >> 1)) >> XY_SHIFT, color)
+    return img
+
+
+def fill_poly(mask: np.ndarray, poly: np.ndarray, value=255) -> np.ndarray:
+    """cv2.fillPoly(mask, [poly], value) in place for one int32 polygon
+    [n, 2] (x, y), 8-connected, shift 0, convex or not (OpenCV's
+    CollectPolyEdges + FillEdgeCollection: the outline drawn as 8-connected
+    lines, the inside scan-converted in 16-bit fixed point)."""
+    H, W = mask.shape[:2]
+    v = [(int(x), int(y)) for x, y in np.asarray(poly).reshape(-1, 2)]
+    edges = []
+    pt0 = (v[-1][0] << XY_SHIFT, v[-1][1])
+    for i in range(len(v)):
+        pt1 = (v[i][0] << XY_SHIFT, v[i][1])
+        t0 = ((pt0[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt0[1])
+        t1 = ((pt1[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt1[1])
+        pts = _line_points(W, H, t0, t1)
+        mask[pts[:, 1], pts[:, 0]] = value
+        # the edge runs from its ends (clipped to the image where its
+        # outline leaves it, as far as cv::clipLine moves them) at the
+        # pixels' centres
+        c0, c1 = (t0[0] << XY_SHIFT, t0[1]), (t1[0] << XY_SHIFT, t1[1])
+        if not (0 <= t0[0] < W and 0 <= t1[0] < W and 0 <= t0[1] < H and 0 <= t1[1] < H):
+            _, (a0, b0), (a1, b1) = _clip_line(W, H, t0, t1)
+            if b0 != b1:
+                c0, c1 = (a0 << XY_SHIFT, b0), (a1 << XY_SHIFT, b1)
+        if pt0[1] != pt1[1]:
+            top, bot = (c0, c1) if pt0[1] < pt1[1] else (c1, c0)
+            edges.append([min(pt0[1], pt1[1]), max(pt0[1], pt1[1]),
+                          top[0] + (XY_ONE >> 1), bot[0] + (XY_ONE >> 1), top[1], bot[1]])
+        pt0 = pt1
+    _fill_edges(mask, edges, value)
+    return mask
+
+
+def _edge_x(e, y: int) -> int:
+    """An edge's x at row y with 32 fractional bits, from its ends
+    [.., .., x_top, x_bottom (16-bit fixed point), y_top, y_bottom]."""
+    xt, xb, yt, yb = e[2], e[3], e[4], e[5]
+    return (xt << XY_SHIFT) + ((y - yt) * (xb - xt) << XY_SHIFT) // (yb - yt)
+
+
+def _fill_edges(img: np.ndarray, edges, color) -> None:
+    """cv::FillEdgeCollection: the active edges, ordered by x row by row,
+    filled between pairs; a span runs from the left edge's pixel to the
+    pixel before the one the right edge reaches (as OpenCV 5 fills; each
+    edge's x is taken at the row, not summed up row by row)."""
+    H, W = img.shape[:2]
+    if len(edges) < 2:
+        return
+    y_min = min(e[0] for e in edges)
+    y_max = max(e[1] for e in edges)
+    xs = [_edge_x(e, e[0]) for e in edges] + [_edge_x(e, e[1]) for e in edges]
+    if y_max < 0 or y_min >= H or max(xs) < 0 or min(xs) >= (W << 2 * XY_SHIFT):
+        return
+    edges = sorted(edges, key=lambda e: (e[0], _edge_x(e, e[0])))
+    y_max = min(y_max, H)
+    total = len(edges)
+    active = []          # the active edges, in order of x
+    i = 0
+    y = edges[0][0]
+    while y < y_max:
+        # drop the edges ending here; insert the ones starting here before
+        # the first active edge whose x is not below theirs
+        xa = {id(e): _edge_x(e, y) for e in active}
+        merged, j = [], 0
+        while j < len(active) or (i < total and edges[i][0] == y):
+            last = active[j] if j < len(active) else None
+            if last is not None and last[1] == y:
+                j += 1
+            elif last is not None and (i >= total or edges[i][0] > y or
+                                       xa[id(last)] < _edge_x(edges[i], y)):
+                merged.append(last)
+                j += 1
+            elif i < total:
+                merged.append(edges[i])
+                i += 1
+            else:
+                break
+        active = merged
+        if y >= 0:
+            for a, b in zip(active[0::2], active[1::2]):
+                lo, hi = sorted((_edge_x(a, y), _edge_x(b, y)))
+                x1, x2 = lo >> (2 * XY_SHIFT), (hi - XY_ONE) >> (2 * XY_SHIFT)
+                if x1 < W and x2 >= 0:
+                    _hline(img, y, max(x1, 0), min(x2, W - 1), color)
+        y += 1
+        active.sort(key=lambda e: _edge_x(e, y))

@@ -1,12 +1,16 @@
 """Frame IO: RGB images and depth maps (counterpart of
-nerfloc_tpu/data/reader.py, reading PNGs with the port's own decoder,
-data/png.py, where the JAX package calls OpenCV).
+nerfloc_tpu/data/reader.py). The JAX package reads frames with OpenCV; the
+port has its own decoders: PNG (data/png.py), baseline JPEG (data/jpeg.py,
+libjpeg-turbo's arithmetic, as OpenCV decodes) and baseline TIFF
+(data/tiff.py).
 
-16-bit depth PNGs are millimetres (65535 = invalid), COLMAP
-`.geometric.bin` arrays and `.npy` files are metres, PFM depth keeps the
-photometric mask beside it; depth is nearest-resized to the RGB
-resolution and sub-millimetre values are zeroed. JPEG and TIFF frames and
-LMDB stores raise NotImplementedError.
+16-bit depth PNGs and TIFFs are millimetres (65535 = invalid), float TIFF
+depth (OnePose's MVS maps) goes through the same arithmetic, as the JAX
+package puts it (raw == 65535 -> 0, then / 1000, then < 1e-5 -> 0);
+COLMAP `.geometric.bin` arrays and `.npy` files are metres, PFM depth keeps
+the photometric mask beside it; depth is nearest-resized to the RGB
+resolution and sub-millimetre values are zeroed. Colour TIFFs must hold
+8-bit samples. LMDB stores raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -15,17 +19,15 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from . import png
+from . import jpeg, png, tiff
 from .imgproc import resize_nearest
 
-_UNSUPPORTED = {".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF", ".tiff": "TIFF"}
+_JPEG = (".jpg", ".jpeg")
+_TIFF = (".tif", ".tiff")
 
 
-def _check_format(path: str) -> None:
-    kind = _UNSUPPORTED.get(os.path.splitext(path)[1].lower())
-    if kind is not None:
-        raise NotImplementedError(f"{path}: {kind} frames are not supported by the port "
-                                  "(PNG only)")
+def _ext(path: str) -> str:
+    return os.path.splitext(path)[1].lower()
 
 
 def read_colmap_array(path: str) -> np.ndarray:
@@ -44,14 +46,24 @@ def read_colmap_array(path: str) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """RGB uint8 [H, W, 3] (gray replicated, alpha dropped, 16-bit samples
-    cut to their high byte, as OpenCV's IMREAD_COLOR reads them)."""
-    _check_format(path)
+    """RGB uint8 [H, W, 3] (gray replicated, alpha dropped, 16-bit PNG
+    samples cut to their high byte, as OpenCV's IMREAD_COLOR reads them)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    img = png.read(path)
+    ext = _ext(path)
+    if ext in _JPEG:
+        return jpeg.read(path)
+    if ext in _TIFF:
+        img = tiff.read(path)
+        if img.dtype != np.uint8:
+            raise NotImplementedError(f"{path}: a {img.dtype} TIFF where an 8-bit colour "
+                                      "image is read")
+    else:
+        img = png.read(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
+    if img.ndim == 3:
+        img = img[..., :3]
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     return img
@@ -74,16 +86,16 @@ def read_pfm(path: str) -> np.ndarray:
 
 
 def _read_gray(path: str) -> np.ndarray:
-    """A one-channel PNG at its own depth (OpenCV's IMREAD_ANYDEPTH)."""
-    img = png.read(path)
+    """A one-channel PNG or TIFF at its own depth (OpenCV's
+    IMREAD_ANYDEPTH)."""
+    img = tiff.read(path) if _ext(path) in _TIFF else png.read(path)
     if img.ndim != 2:
-        raise NotImplementedError(f"{path}: a colour PNG where a one-channel map is read")
+        raise NotImplementedError(f"{path}: a colour image where a one-channel map is read")
     return img
 
 
 def load_depth(path: str) -> np.ndarray:
     """Depth in metres, float32; invalid pixels = 0."""
-    _check_format(path)
     if path.endswith(".geometric.bin"):
         depth = read_colmap_array(path).astype(np.float32)
     elif path.endswith(".pfm"):

@@ -16,8 +16,12 @@
     subsample, the depth noise.
   * support-view modes: retrieval / coreset / coreset+retrieval / mvs,
     with FPS or covisibility coreset samplers.
-  * object scenes (a store with `bboxes_3d`, whose target mask needs a
-    filled convex hull) raise NotImplementedError.
+  * object scenes (a store with `bboxes_3d`, OnePose's layout): each
+    query frame is read once more to learn its size, its target mask is
+    the filled convex hull of the object's points projected with the
+    frame's pose (`compute_target_mask`), and the mask goes through the
+    query's transforms; the item carries `bbox3d_corners` and
+    `target_mask`.
 """
 from __future__ import annotations
 
@@ -26,10 +30,27 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import imgproc
 from .reader import intrinsic_to_K, load_frame
 from .samplers import CovisibilitySampler, fps_poses
 from .scene_store import SceneStore, _tcw44
 from .transforms import Compose
+
+
+def compute_target_mask(points: np.ndarray, K: np.ndarray, w2c: np.ndarray,
+                        hw: tuple) -> np.ndarray:
+    """The convex hull of the object points projected into the frame,
+    filled (scipy's ConvexHull, then imgproc.fill_poly as cv2.fillPoly)."""
+    from scipy.spatial import ConvexHull
+
+    pts_cam = points @ w2c[:3, :3].T + w2c[:3, 3]
+    z = np.maximum(pts_cam[:, 2], 1e-8)
+    uv = (pts_cam[:, :2] @ K[:2, :2].T) / z[:, None] + K[:2, 2]
+    hull = ConvexHull(uv)
+    poly = uv[hull.vertices].astype(np.int32)
+    mask = np.zeros(hw, dtype=np.uint8)
+    imgproc.fill_poly(mask, poly, 255)
+    return mask > 0
 
 
 def add_depth_noise(depth: np.ndarray, mask: np.ndarray, depth_length: float,
@@ -75,10 +96,6 @@ class VideoDataset:
                  opts: Optional[DataOptions] = None, mode: str = "test",
                  test_time_color_jitter: bool = False,
                  test_time_style_change: bool = False):
-        if store.bboxes_3d is not None:
-            raise NotImplementedError(
-                f"{store.scene_dir}: object scenes (bboxes_3d.npy and their target "
-                "masks) are not supported by the port")
         self.store = store
         self.split = split
         self.mode = mode
@@ -179,9 +196,9 @@ class VideoDataset:
 
     # -- item assembly ------------------------------------------------------
 
-    def _load_transformed(self, meta: Dict, aug_params=None):
+    def _load_transformed(self, meta: Dict, aug_params=None, mask=None):
         img, depth, Tcw, K = load_frame(self.store.base_dir, meta)
-        img, depth, Tcw, K, mask = self.transform(img, depth, Tcw, K)
+        img, depth, Tcw, K, mask = self.transform(img, depth, Tcw, K, mask)
         if aug_params is not None:
             img, depth, Tcw, K, mask = self.aug_transform(
                 img, depth, Tcw, K, mask, params=aug_params)
@@ -205,13 +222,23 @@ class VideoDataset:
             meta["file_name"] = meta["file_name"].replace(
                 "/seq", "/style_images/seq").replace("/frame", "_night/frame")
 
-        img, depth, Tcw, K, mask = self._load_transformed(meta, aug_params)
+        tmask = None
+        if store.bboxes_3d is not None and store.points is not None:
+            # the frame's size before the transforms: the JAX package reads
+            # the whole frame for it
+            Tcw = _tcw44(meta["extrinsic_Tcw"])
+            _, depth_probe, _, _ = load_frame(store.base_dir, meta)
+            tmask = compute_target_mask(
+                store.points, intrinsic_to_K(meta["camera_intrinsic"]), Tcw,
+                depth_probe.shape).astype(np.uint8)
+
+        img, depth, Tcw, K, tmask = self._load_transformed(meta, aug_params, tmask)
         if self.mode == "test" and self.test_time_color_jitter:
             import hashlib
 
             h = int(hashlib.sha1(meta["file_name"].encode()).hexdigest(), 16)
             p = self._tt_params[h % len(self._tt_params)]
-            img, depth, Tcw, K, mask = self._tt_jitter(img, depth, Tcw, K, mask, params=p)
+            img, depth, Tcw, K, tmask = self._tt_jitter(img, depth, Tcw, K, tmask, params=p)
         c2w = np.linalg.inv(_tcw44(Tcw)).astype(np.float32)
         depth = depth * store.scale_factor
 
@@ -273,6 +300,11 @@ class VideoDataset:
         # zero support depth outside the scene range
         rng_mask = (out["topk_depths"] > near) & (out["topk_depths"] < far)
         out["topk_depths"] = out["topk_depths"] * rng_mask.astype(np.float32)
+
+        if store.bboxes_3d is not None:
+            out["bbox3d_corners"] = store.bboxes_3d.reshape(-1, 3).astype(np.float32)
+            if tmask is not None:
+                out["target_mask"] = tmask.astype(bool)
         return out
 
     def set_epoch(self, epoch: int):

@@ -4,7 +4,9 @@ nerfloc_tpu/models/pose_estimator.py: `extract_2d`, `build_context`,
 `localize_forward`, `train_forward`, `compute_render_loss`,
 `render_image_rays`, `select_visible_mask`, `match_cascade`).
 
-A query runs: backbone on [1+V] images -> appearance FiLM -> scene context
+A query runs: backbone on [1+V] images -> appearance FiLM (with
+cfg.encode_appearance, as the multi-scene configs set it; the per-object
+fine-tunes turn it off) -> scene context
 (NeuRay ray features, neural points, multiview aggregation) -> Gumbel top-k
 keypoints -> coarse 3D descriptors (fused aggregation, K=8) -> coarse and
 fine matching (fused aggregation, K=1) -> P3P-RANSAC. All of it stays on
@@ -117,11 +119,10 @@ class NerfPoseEstimator(nn.Module):
         super().__init__()
         if dtype not in (F32, torch.bfloat16):
             raise ValueError(f"compute dtype {dtype}: the port runs float32 or bfloat16")
-        if cfg.simple_3d_model or cfg.keypoints_3d_source != "depth" or \
-                not cfg.encode_appearance:
+        if cfg.simple_3d_model or cfg.keypoints_3d_source != "depth":
             raise NotImplementedError(
-                "the port covers the default localization path only "
-                "(no simple 3D model, depth keypoints, appearance FiLM)")
+                "simple_3d_model and keypoints_3d_source='sfm' are not ported (the port "
+                "runs the conditional NeRF on depth keypoints)")
         self.cfg = cfg
         self.dtype = dtype
         hd, C = cfg.matcher_hidden_dim, cfg.backbone2d_fpn_dim
@@ -141,10 +142,11 @@ class NerfPoseEstimator(nn.Module):
             self.fine_transformer2 = SelfCrossTransformer(hd, 8, 128, dtype)
             self.fine_matcher2 = FineMatching(hd, dtype)
         self.model_3d = ConditionalNeRF(cfg, dtype)
-        self.adapt_appearance_coarse = AppearanceAdaptLayer(C, dtype=dtype)
-        self.adapt_appearance_fine = AppearanceAdaptLayer(C, dtype=dtype)
-        if cfg.train_nerf:
-            self.adapt_appearance_rgb = AppearanceAdaptLayer(3, is_rgb=True, dtype=dtype)
+        if cfg.encode_appearance:
+            self.adapt_appearance_coarse = AppearanceAdaptLayer(C, dtype=dtype)
+            self.adapt_appearance_fine = AppearanceAdaptLayer(C, dtype=dtype)
+            if cfg.train_nerf:
+                self.adapt_appearance_rgb = AppearanceAdaptLayer(3, is_rgb=True, dtype=dtype)
         init_params(self, seed)
         self.to(resolve_device(device))
         self.eval()
@@ -165,8 +167,9 @@ class NerfPoseEstimator(nn.Module):
     def build_context(self, batch: Mapping[str, Tensor]):
         """The backbone over the query and support images (one pass over
         [query | support] when they share a size, else one pass each), FiLM
-        adaptation of the support maps, then the conditional-NeRF scene
-        context."""
+        adaptation of the support maps (with encode_appearance; without it
+        the support images and maps go through unchanged), then the
+        conditional-NeRF scene context."""
         cfg = self.cfg
         if batch["image"].shape == batch["topk_images"].shape[1:]:
             a2d = self.extract_2d(torch.cat([batch["image"][None], batch["topk_images"]]))
@@ -181,14 +184,17 @@ class NerfPoseEstimator(nn.Module):
             q2d = {k: v for k, v in q.items() if k != "feat_pyramid"}
             feat_coarse_src, feat_fine_src = s["feat_coarse"], s["feat_fine"]
             conv1_q, conv1_s = q["feat_pyramid"]["conv1"], s["feat_pyramid"]["conv1"]
-        embedding_a = appearance_embedding(conv1_q)
-        embedding_src = appearance_embedding(conv1_s)
         topk_images = batch["topk_images"]
-        if cfg.train_nerf:
-            topk_images = self.adapt_appearance_rgb(topk_images, embedding_src, embedding_a)
-        feat_coarse_src = self.adapt_appearance_coarse(feat_coarse_src, embedding_src,
+        if cfg.encode_appearance:
+            embedding_a = appearance_embedding(conv1_q)
+            embedding_src = appearance_embedding(conv1_s)
+            if cfg.train_nerf:
+                topk_images = self.adapt_appearance_rgb(topk_images, embedding_src,
+                                                        embedding_a)
+            feat_coarse_src = self.adapt_appearance_coarse(feat_coarse_src, embedding_src,
+                                                           embedding_a)
+            feat_fine_src = self.adapt_appearance_fine(feat_fine_src, embedding_src,
                                                        embedding_a)
-        feat_fine_src = self.adapt_appearance_fine(feat_fine_src, embedding_src, embedding_a)
         ctx = self.model_3d.build_scene_context(
             topk_images, batch["topk_depths"], batch["topk_poses"], batch["topk_Ks"],
             batch["near"], batch["far"], feat_coarse_src, feat_fine_src,

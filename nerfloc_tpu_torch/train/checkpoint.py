@@ -143,14 +143,19 @@ def discover_best_dirs(directory: str) -> Dict[str, str]:
     return out
 
 
+def restorable(current: Mapping[str, torch.Tensor],
+               restored: Mapping[str, torch.Tensor]) -> List[str]:
+    """The keys of `current` that `restored` holds with the same shape."""
+    return [k for k, v in current.items()
+            if torch.is_tensor(restored.get(k)) and restored[k].shape == v.shape]
+
+
 def partial_restore(current: Mapping[str, torch.Tensor],
                     restored: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A state dict holding `restored`'s entry wherever the same key exists
     with the same shape (cast to the current dtype and device), and
     `current`'s elsewhere: warm-starts a model whose heads changed."""
-    out = {}
-    for k, v in current.items():
-        r = restored.get(k)
-        out[k] = r.to(dtype=v.dtype, device=v.device) \
-            if torch.is_tensor(r) and r.shape == v.shape else v
+    out = dict(current)
+    for k in restorable(current, restored):
+        out[k] = restored[k].to(dtype=current[k].dtype, device=current[k].device)
     return out

@@ -42,7 +42,7 @@ from nerfloc_tpu_torch.data import reader as treader
 from nerfloc_tpu_torch.data import samplers as tsamplers
 from nerfloc_tpu_torch.data import scene_store as tstore
 from nerfloc_tpu_torch.data import transforms as ttf
-from nerfloc_tpu_torch.data.synthetic import SCENE_VARIANTS, write_scene
+from nerfloc_tpu_torch.data.synthetic import SCENE_VARIANTS, write_object_scene, write_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
@@ -266,11 +266,12 @@ def test_png_and_readers_raise_on_unsupported(tmp_path):
     good = png.encode(img)
     with pytest.raises(png.PNGError, match="CRC"):
         png.decode(good[:40] + bytes([good[40] ^ 1]) + good[41:])
-    for ext, kind in ((".jpg", "JPEG"), (".tiff", "TIFF")):
+    # JPEG and TIFF frames read as the JAX package reads them (through
+    # OpenCV); tests/test_torch_formats.py holds both codecs to it in full
+    for ext in (".jpg", ".tiff"):
         q = str(tmp_path / f"f{ext}")
         cv2.imwrite(q, img)
-        with pytest.raises(NotImplementedError, match=kind):
-            treader.load_image(q)
+        assert np.array_equal(treader.load_image(q), jreader.load_image(q)), ext
     with pytest.raises(NotImplementedError, match="LMDB"):
         treader.LMDBReader(str(tmp_path))
 
@@ -573,12 +574,15 @@ def test_factory_rejects_what_is_not_ported(scenes, tmp_path):
     bad.write_text(open(scenes[1]).read().replace("TRANSFORM:", "transforms:", 1))
     with pytest.raises(ValueError, match="TRANSFORM"):
         tfactory.build_dataset(tconfigs.Config(dataset_type=str(bad)), "test")
+    # object scenes (bboxes_3d.npy, in_box_pc.ply) build as the JAX package
+    # builds them, their target masks included
     root = tmp_path / "obj"
-    write_scene(str(root), scene="o", n_train=2, n_test=1, n_support=1, H=16, W=16)
-    np.save(root / "o" / "bboxes_3d.npy", np.zeros((1, 8, 3)))
-    (root / "o" / "in_box_pc.ply").write_bytes((root / "o" / "pc.ply").read_bytes())
-    with pytest.raises(NotImplementedError, match="object scenes"):
-        tfactory.build_dataset(tconfigs.Config(datadir=str(root), scenes=("o",)), "test")
+    write_object_scene(str(root), scene="o", n_train=3, n_test=1, n_support=1, H=96, W=96)
+    ov = {"dataset_type": scenes[1], "datadir": str(root), "scenes": ["o"], "n_views_test": 2}
+    t = tfactory.build_dataset(tconfigs.load_config(None, ov), "test")
+    j = jfactory.build_dataset(jconfigs.load_config(None, ov), "test")
+    _assert_items_equal(t[0], j[0], aug=False)
+    assert t[0]["target_mask"].any()
 
 
 # ----------------------------------------------------------------- loader
