@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (nerfloc_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parallel-only   # phase 1, then phases 14 and 16
 
 Phases (any failure exits non-zero):
   1. build every hand-written kernel from csrc/ (one nvcc per source);
@@ -123,9 +124,46 @@ Phases (any failure exits non-zero):
      host ms per JPEG decode (helper, decode_py), per 512x512 float32 TIFF
      read per compression, per compute_target_mask and per item; no cv2,
      PIL, yaml or tifffile module loaded.
+ 16. parallelism on phase 14's scenes and configurations (bf16), each
+     job a subprocess with PYTHONHASHSEED=0 (dataset items draw alike in
+     every process), its rank processes started by torchrun: (a) cli.train
+     as 2 ranks sharing the card over gloo (NCCL refuses two ranks on one
+     device), global batch 2, one epoch with its multi-process eval:
+     exactly 3 bf16 and 0 f32 launches per step per rank, both ranks'
+     parameters bit-equal after the epoch, one gradient all-reduce per
+     step; every job runs under torch.use_deterministic_algorithms (ops
+     without a deterministic implementation warn and are listed); (b) the
+     same epoch as 1 rank over NCCL (its all-reduce built and launched),
+     which is one process's arithmetic run again: its first-step gradient
+     and parameters bit-equal to the one-process run's, then one cli.test
+     whose table equals one process's; against one process's B=2 epoch on
+     the same batches and noise, the 2 ranks' first-step gradient and
+     parameters after the epoch each within PAR_TOL of every leaf's norm
+     (plus 1e-8 of the whole norm, for leaves zero in exact arithmetic);
+     (c) 2 ranks over NCCL where there are 2 cards;
+     render_image_ray_sharded of a 240x320 frame at ray width 2 (phase 8's
+     f32 model): 19 launches per rank, rgb and depth within FRAME_TOL of
+     render_image in one process, the mask equal; cli.test as 2 ranks with
+     cascade and refinement over phase 14's checkpoints, each query's
+     noise fixed by its test index: the per-scene table equal on both
+     ranks, and against one process's counts and pose_acc equal and errors
+     within PAR_TOL. Times: ms per DDP step (two processes sharing one
+     card: not a scaling number), ms and bytes of the gradient all-reduce
+     (gloo and NCCL), ms per ray-sharded frame and per all_gather, ms per
+     multi-process eval query and per metric gather.
+ 17. retrieval.pipeline with netvlad (VGG16 conv5_3, 64 x 512 clusters,
+     whitening 32768 -> 4096) and dir (ResNet101, GeM, fc 2048) at full
+     width with seeded random weights, on phase 14's and phase 15's
+     written scenes (PNG and JPEG frames), on the card and then on the
+     CPU: every top-k list equal, or equal up to ties (position by
+     position the two entries' CPU similarities within 2 eps + 1e-5, eps
+     the largest distance of a card descriptor from its CPU one), the
+     descriptors' cosine within RETRIEVAL_COS of 1; ms per frame of the
+     model at batch 8, 224x224, and peak memory.
 The last lines are a `kernels` JSON object, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
-prints no result.
+prints no result. `chip_smoke.py --worker <spec.json>` is one process of
+phase 16 (the script starts it).
 """
 from __future__ import annotations
 
@@ -1665,11 +1703,18 @@ def write_flow_yaml(path: str, doc) -> None:
         f.write(json.dumps(doc) + "\n")
 
 
-def clis_on_files(dev, card: str):
-    """Phase 14: the train and test CLIs on written 480x640 scenes at full
-    width in bf16 (see the module docstring). Returns its numbers."""
-    import tempfile
+def _subdir(root: str, name: str):
+    """A new directory `name` under `root`, kept for the later phases."""
+    import contextlib
+    path = os.path.join(root, name)
+    os.makedirs(path)
+    return contextlib.nullcontext(path)
 
+
+def clis_on_files(dev, card: str, files: str):
+    """Phase 14: the train and test CLIs on written 480x640 scenes at full
+    width in bf16 (see the module docstring), under files/cli. Returns its
+    numbers and the paths phases 16-17 reuse."""
     import numpy as np
     import torch
     from nerfloc_tpu_torch.cli import test as cli_test
@@ -1680,7 +1725,7 @@ def clis_on_files(dev, card: str):
     from nerfloc_tpu_torch.data.synthetic import SCENE_VARIANTS, write_scene
     from nerfloc_tpu_torch.train.checkpoint import discover_best_dirs
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+    with _subdir(files, "cli") as root:
         t0 = time.perf_counter()
         for i, name in enumerate(CLI_SCENES):
             tex, bh, rs = SCENE_VARIANTS[i]
@@ -1831,7 +1876,8 @@ def clis_on_files(dev, card: str):
     loaded = [m for m in ("cv2", "PIL", "yaml") if m in sys.modules]
     if loaded:
         fail(f"cli: {loaded} were imported")
-    out.update(cli_item_ms_train=item_ms["train"], cli_item_ms_test=item_ms["test"],
+    out.update(cli_root=root, cli_paths=paths, cli_ckpts=ckpts,
+               cli_item_ms_train=item_ms["train"], cli_item_ms_test=item_ms["test"],
                cli_loader_items_per_s=items_per_s, cli_train_ms_per_step=step_ms,
                cli_train_launches_per_step=train_launches,
                cli_loader_wait_share=wait_share, cli_train_ms_alone=alone_ms,
@@ -1907,12 +1953,11 @@ def _test_cli(cli_test, argv, expect: int, what: str, n_items: int, out_json: st
     return probe, per_scene
 
 
-def finetune_on_files(dev, card: str):
+def finetune_on_files(dev, card: str, files: str):
     """Phase 15: the per-scene fine-tune configurations through the CLIs
-    on files, bf16, full width (see the module docstring). Returns its
-    numbers."""
+    on files, bf16, full width (see the module docstring), under files/ft.
+    Returns its numbers."""
     import pickle
-    import tempfile
 
     import numpy as np
     import torch
@@ -1925,7 +1970,7 @@ def finetune_on_files(dev, card: str):
     from nerfloc_tpu_torch.data.video_dataset import compute_target_mask
     from nerfloc_tpu_torch.utils.visualization import draw_box3d
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as root:
+    with _subdir(files, "ft") as root:
         t0 = time.perf_counter()
         for i, name in enumerate(FT_OBJECTS):
             write_object_scene(root, scene=name, n_train=FT_TRAIN, n_test=FT_TEST,
@@ -2116,8 +2161,539 @@ def finetune_on_files(dev, card: str):
                ft_eval_ms_per_query=ft_eval_ms, ft_eval_launches_per_query=ft_eval_launches,
                ft_peak_train_gib=peak_train, ft_peak_eval_gib=peak_eval,
                jpeg_decode_ms=jpeg_ms, jpeg_decode_py_ms=jpeg_py_ms, tiff_read_ms=tiff_ms,
-               target_mask_ms=mask_ms, jpeg_train_ms_per_step=jpeg_ms_step)
+               target_mask_ms=mask_ms, jpeg_train_ms_per_step=jpeg_ms_step, ft_root=root)
     return out
+
+
+# -- phases 16-17 -----------------------------------------------------------------
+
+PAR_TOL = 2e-3          # 2-rank against one-process results on the card
+FRAME_TOL = 1e-5        # ray-sharded frame against render_image
+RAY_WIDTH = 2
+RETRIEVAL_K = 16        # the default image_core_set_size
+RETRIEVAL_COS = 1e-3    # 1 - cosine of card and CPU descriptors
+
+
+def _worker_setup():
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+class Timed:
+    """Wraps module.name: each call synchronized and timed (host ms), with
+    `key(*args)` kept beside the time."""
+
+    def __init__(self, module, name: str, key=lambda *a, **k: None):
+        self.module, self.name, self.key = module, name, key
+        self.orig = getattr(module, name)
+        self.calls = []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append((self.key(*args, **kwargs), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def _worker_train(spec):
+    """cli.train.main(spec['train']) with each step probed (exactly 3 bf16
+    launches per query of this rank, 0 f32) and every all_reduce timed; the
+    final state on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from nerfloc_tpu_torch.cli import train as cli_train
+    states, first = [], []
+
+    class Recorded(cli_train.TrainState):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            states.append(self)
+
+        def apply_gradients(self, grads):
+            if not first:
+                first.append(grads.detach().cpu().clone())
+            super().apply_gradients(grads)
+    cli_train.TrainState = Recorded
+    probe = StepProbe(cli_train, "make_train_step", 3 * spec["queries_per_rank"],
+                      "ddp train step")
+    reduces = Timed(dist, "all_reduce", lambda t, *a, **k: (t.numel(), t.element_size()))
+    try:
+        if cli_train.main(spec["train"]) != 0:
+            fail("parallel: cli.train returned non-zero")
+    finally:
+        probe.restore()
+        reduces.restore()
+    st = states[0]
+    n_params = sum(p.numel() for p in st.params)
+    grads = [ms for (n, _), ms in reduces.calls if n == n_params]
+    return {"model": {k: v.detach().cpu() for k, v in st.model.state_dict().items()},
+            "first_grad": first[0],
+            "sizes": [(n, p.numel()) for n, p in st.model.named_parameters()], "step": st.step, "step_ms": probe.ms, "launches": probe.launches,
+            "grad_reduce_ms": grads, "n_params": n_params,
+            "backend": dist.get_backend() if dist.is_initialized() else None}
+
+
+def _worker_render(spec):
+    """One 240x320 frame of the default f32 model (as phase 8): with a
+    world of 2, render_image_ray_sharded over a (1, 2) mesh; alone,
+    render_image. Launches of the first frame, ms of 3 more."""
+    import torch
+    import torch.distributed as dist
+    from nerfloc_tpu_torch.configs import Config, RenderConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.parallel.mesh import MeshSpec, make_mesh, world
+    from nerfloc_tpu_torch.parallel.render import (make_context_builder,
+                                                   make_ray_sharded_render,
+                                                   render_image_ray_sharded)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    H, W = 240, 320
+    cfg = Config(render=RenderConfig(fused_query_agg=True))
+    model = NerfPoseEstimator(cfg, device=dev, seed=0)
+    batch = to_device_batch(device_batch(make_query_batch(n_views=5, H=H, W=W, seed=0)), dev)
+    sharded = world()[1] > 1
+    with torch.no_grad():
+        if sharded:
+            mesh = make_mesh(MeshSpec(data=1, ray=RAY_WIDTH))
+            ctx = make_context_builder(model)(batch)
+            render = make_ray_sharded_render(model, cfg, mesh)
+
+            def frame():
+                return render_image_ray_sharded(model, cfg, ctx, batch["K"], batch["pose"],
+                                                H, W, mesh, render=render)
+        else:
+            ctx, _ = model.build_context(batch)
+
+            def frame():
+                return model.model_3d.render_image(ctx, batch["K"], batch["pose"], H, W)
+        frame()
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        img = frame()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        gathers = Timed(dist, "all_gather") if sharded else None
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if gathers is not None:
+            gathers.restore()
+    return {"launches": launches, "frame_ms": times,
+            "gather_ms": [ms for _, ms in gathers.calls] if gathers else [],
+            **{k: img[k].cpu() for k in ("rgb", "depth", "mask")}}
+
+
+def _worker_test(spec):
+    """cli.test.main(spec['test']) with each query probed (exactly 55 bf16
+    launches) and the metric gather timed; this rank's table."""
+    from nerfloc_tpu_torch.cli import test as cli_test
+    from nerfloc_tpu_torch.train import evaluate
+    tables = []
+    orig_eval = cli_test.eval_dataset
+
+    def eval_dataset(*a, **k):
+        tables.append(orig_eval(*a, **k))
+        return tables[-1]
+    cli_test.eval_dataset = eval_dataset
+    probe = StepProbe(cli_test, "make_eval_step", EVAL_LAUNCHES, "ddp eval query")
+    gather = Timed(evaluate, "allgather_metrics")
+    try:
+        if cli_test.main(spec["test"]) != 0:
+            fail("parallel: cli.test returned non-zero")
+    finally:
+        probe.restore()
+        gather.restore()
+        cli_test.eval_dataset = orig_eval
+    table = {k: v for k, v in tables[0].items() if k != "_poses"}
+    return {"table": table, "query_ms": probe.ms, "launches": probe.launches,
+            "gather_ms": [ms for _, ms in gather.calls]}
+
+
+def worker(spec_path: str) -> int:
+    """One process of phase 16 (`chip_smoke.py --worker <spec.json>`, under
+    torchrun or alone): the parts the spec names, in order, each result
+    saved to <out>/<tag>_rank<r>.pt."""
+    _worker_setup()
+    import warnings
+    import torch
+    from nerfloc_tpu_torch.parallel.mesh import init_distributed, launched, world
+    spec = json.load(open(spec_path))
+    if launched():
+        init_distributed(spec["backend"], "cuda")
+    else:
+        torch.cuda.set_device(0)
+    # deterministic kernels where torch has them (CUBLAS_WORKSPACE_CONFIG
+    # is set by _run_ranks); an op without one warns, and its name is kept
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    parts = {"train": _worker_train, "render": _worker_render, "test": _worker_test}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = {part: parts[part](spec) for part in spec["parts"]}
+    res["nondeterministic"] = sorted({str(w.message).split(" does not have a deterministic")[0]
+                                      for w in caught
+                                      if "does not have a deterministic" in str(w.message)})
+    torch.save(res, os.path.join(spec["out"], f"{spec['tag']}_rank{world()[0]}.pt"))
+    if launched():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_ranks(tag: str, n: int, spec: dict, out: str, timeout: float):
+    """Phase 16's worker as n torchrun ranks (n = 0: one process without
+    torchrun), PYTHONHASHSEED=0 in every process so that dataset items draw
+    alike, cuBLAS with a fixed workspace (deterministic algorithms);
+    returns each rank's results. Kills what is left on a timeout."""
+    import torch
+    spec = {**spec, "tag": tag, "out": out}
+    path = os.path.join(out, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, script, "--worker", path] if n == 0 else \
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n}", script, "--worker", path]
+    env = {**os.environ, "PYTHONHASHSEED": "0", "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        log, _ = proc.communicate()
+        fail(f"parallel {tag}: timed out after {timeout} s:\n{log[-4000:]}")
+    if proc.returncode != 0:
+        fail(f"parallel {tag}: exit {proc.returncode}:\n{log[-6000:]}")
+    wall = time.perf_counter() - t0
+    return [torch.load(os.path.join(out, f"{tag}_rank{r}.pt"), weights_only=False)
+            for r in range(max(n, 1))], wall
+
+
+def _leaf_dist(a, b):
+    return {k: float((a[k].double() - v.double()).norm()) for k, v in b.items()}
+
+
+def _grad_leaves(flat, sizes):
+    """The flat first-step gradient split into {parameter name: values}."""
+    return dict(zip([n for n, _ in sizes], flat.split([k for _, k in sizes])))
+
+
+def _leaves_agree(got, want, what: str):
+    """Per leaf ||got - want|| against PAR_TOL ||want|| + 1e-8 ||want||_all
+    (the floor covers leaves that are zero in exact arithmetic). Prints the
+    leaves nearest their bound; returns (the largest share of the bound
+    used, its leaf): the caller fails above 1."""
+    d = _leaf_dist(got, want)
+    total = math.sqrt(sum(float(v.double().norm()) ** 2 for v in want.values()))
+    rows = sorted(((d[k] / (PAR_TOL * float(v.double().norm()) + 1e-8 * total + 1e-30), k)
+                   for k, v in want.items()), reverse=True)
+    print(f"{what}: {sum(1 for k in want if d[k] > 0)} of {len(want)} leaves differ; "
+          f"leaves nearest the bound (share, ||diff||, ||leaf||): " +
+          "; ".join(f"{k} {r:.3g} {d[k]:.3g} {float(want[k].double().norm()):.3g}"
+                    for r, k in rows[:5]))
+    return rows[0]
+
+
+def _tables_agree(a: dict, b: dict, what: str) -> float:
+    """Same rows and keys; counts and pose_acc equal; each error within
+    PAR_TOL of max(1, |value|). Returns the largest share of the bound
+    used."""
+    if sorted(a) != sorted(b):
+        fail(f"{what}: rows {sorted(a)} against {sorted(b)}")
+    worst = 0.0
+    for row in a:
+        if sorted(a[row]) != sorted(b[row]):
+            fail(f"{what}: row {row} keys differ")
+        for k, v in a[row].items():
+            w = b[row][k]
+            if k in ("n", "files", "pose_acc"):
+                if v != w:
+                    fail(f"{what}: {row}.{k} {v} against {w}")
+                continue
+            share = abs(v - w) / (PAR_TOL * max(1.0, abs(w)))
+            worst = max(worst, share)
+            if not share <= 1.0:
+                fail(f"{what}: {row}.{k} {v} against {w}")
+    return worst
+
+
+def parallel_on_files(dev, card: str, cli: dict):
+    """Phase 16: data-parallel cli.train, the ray-sharded render and the
+    multi-process cli.test on phase 14's scenes (see the module docstring).
+    Returns its numbers."""
+    import torch
+    torch.cuda.empty_cache()
+    root, paths, ckpts = cli["cli_root"], cli["cli_paths"], cli["cli_ckpts"]
+    out = os.path.join(root, "parallel")
+    os.makedirs(out)
+
+    def spec(kind: str, backend: str, parts, n_ranks: int):
+        return {"backend": backend, "parts": parts, "queries_per_rank": 2 // n_ranks,
+                "train": ["--config", paths["train"], "--basedir", os.path.join(out, kind),
+                          "--batch", "2", "--eval_interval", "1", "--train_render_views", "1",
+                          "--dist_backend", backend, "--device", "cuda"],
+                "test": ["--config", paths["test"], "--ckpt", ckpts, "--out",
+                         os.path.join(out, kind, "eval", "results.json"),
+                         "--dist_backend", backend, "--device", "cuda"]}
+    both = ["train", "render", "test"]
+    two, two_s = _run_ranks("gloo2", 2, spec("gloo2", "gloo", both, 2), out, 600)
+    one, one_s = _run_ranks("one", 0, spec("one", "gloo", both, 1), out, 600)
+    nccl, nccl_s = _run_ranks("nccl1", 1, spec("nccl1", "nccl", ["train", "test"], 1), out,
+                              400)
+
+    # (a) 2 ranks over gloo sharing the card
+    t2 = [r["train"] for r in two]
+    t1 = one[0]["train"]
+    for k, v in t2[0]["model"].items():
+        if not torch.equal(v, t2[1]["model"][k]):
+            fail(f"parallel: the ranks' {k} differ after the epoch")
+    if not t2[0]["step"] == t1["step"] == len(t1["step_ms"]) == len(t2[0]["step_ms"]):
+        fail(f"parallel: steps {t2[0]['step']} (2 ranks) against {t1['step']} (one process)")
+    # the 1-rank NCCL epoch at B=2 is the one-process arithmetic again:
+    # under deterministic algorithms it is bit-equal, which the 2-rank
+    # bounds below rely on
+    tn = nccl[0]["train"]
+    nondet = sorted({m for job in (two, one, nccl) for r in job for m in r["nondeterministic"]})
+    print(f"parallel: ops without a deterministic implementation that ran: "
+          f"{nondet or 'none'}")
+    moved = [k for k, v in t1["model"].items() if not torch.equal(v, tn["model"][k])]
+    if moved or not torch.equal(tn["first_grad"], t1["first_grad"]):
+        fail(f"parallel (b): one process's B=2 epoch run again (1 NCCL rank) is not "
+             f"bit-equal ({len(moved)} leaves differ, e.g. {moved[:3]}); ops without a "
+             f"deterministic implementation: {nondet or 'none'}")
+    leaf, leaf_k = _leaves_agree(
+        *(_grad_leaves(t["first_grad"], t1["sizes"]) for t in (t2[0], t1)),
+        "parallel (a) first-step gradient, 2 ranks vs one process")
+    epoch, epoch_k = _leaves_agree(t2[0]["model"], t1["model"],
+                                   "parallel (a) parameters after the epoch, 2 ranks vs one "
+                                   "process")
+    for share, k, what in ((leaf, leaf_k, "first-step gradient"),
+                           (epoch, epoch_k, "parameters after the epoch")):
+        if not share <= 1.0:
+            fail(f"parallel (a): {what}: {k} at {share:.3g} of PAR_TOL per leaf")
+    if t2[0]["backend"] != "gloo" or len(t2[0]["grad_reduce_ms"]) != t2[0]["step"]:
+        fail(f"parallel: {len(t2[0]['grad_reduce_ms'])} gradient all-reduces over "
+             f"{t2[0]['backend']} for {t2[0]['step']} steps")
+    grad_bytes = t2[0]["n_params"] * 4
+    ddp_ms = statistics.median(t2[0]["step_ms"] + t2[1]["step_ms"])
+    red_ms = statistics.median(t2[0]["grad_reduce_ms"] + t2[1]["grad_reduce_ms"])
+    print(f"parallel (a): cli.train on 2 ranks over gloo sharing one card, global batch 2, "
+          f"{t2[0]['step']} steps, exactly {t2[0]['launches'][-1]} bf16 fused_agg launches per "
+          f"step per rank (1 query each); parameters of the 2 ranks bit-equal; against one "
+          f"process at B=2, per leaf within {leaf:.3g} (first-step gradient) and "
+          f"{epoch:.3g} (parameters after the epoch) of the bound ({t1['step']} steps, median "
+          f"{statistics.median(t1['step_ms']):.2f} ms/step); median {ddp_ms:.2f} ms per DDP step "
+          f"(two processes sharing one card: not a scaling number); gradient all-reduce "
+          f"{grad_bytes} bytes ({t2[0]['n_params']} f32), median {red_ms:.3f} ms over gloo on "
+          f"CUDA tensors; job wall {two_s:.1f} s (one process {one_s:.1f} s); {card}")
+    # (b) one rank over NCCL
+    if tn["backend"] != "nccl" or len(tn["grad_reduce_ms"]) != tn["step"] or tn["step"] == 0:
+        fail(f"parallel (b): {len(tn['grad_reduce_ms'])} gradient all-reduces over "
+             f"{tn['backend']} for {tn['step']} steps")
+    nccl_ms = statistics.median(tn["grad_reduce_ms"])
+    print(f"parallel (b): cli.train as 1 rank over NCCL, {tn['step']} steps at B=2, exactly "
+          f"{tn['launches'][-1]} bf16 launches per step of 2 queries, "
+          f"{len(tn['grad_reduce_ms'])} NCCL "
+          f"gradient all-reduces of {grad_bytes} bytes, median {nccl_ms:.3f} ms; the same "
+          f"arithmetic as one process and bit-equal to it (first-step gradient and every "
+          f"leaf after the epoch); median {statistics.median(tn['step_ms']):.2f} "
+          f"ms/step; job wall {nccl_s:.1f} s; {card}")
+    n_dev = torch.cuda.device_count()
+    if n_dev >= 2:
+        nn2, _ = _run_ranks("nccl2", 2, spec("nccl2", "nccl", ["train"], 2), out, 600)
+        m0, m1 = nn2[0]["train"]["model"], nn2[1]["train"]["model"]
+        if any(not torch.equal(v, m1[k]) for k, v in m0.items()):
+            fail("parallel (c): the NCCL ranks' parameters differ")
+        l2, l2_k = _leaves_agree(*(_grad_leaves(t["first_grad"], t1["sizes"])
+                                   for t in (nn2[0]["train"], t1)),
+                                 "parallel (c) first-step gradient, 2 NCCL ranks vs one")
+        if not l2 <= 1.0:
+            fail(f"parallel (c): first-step gradient: {l2_k} at {l2:.3g} of PAR_TOL per leaf")
+        print(f"parallel (c): 2 ranks over NCCL on 2 cards, within {l2:.3g} of the bound; "
+              f"{card}")
+    else:
+        print(f"parallel (c): {n_dev} card: 2 ranks over NCCL need 2 (NCCL refuses two ranks "
+              "on one device); not run")
+
+    # the ray-sharded frame
+    r2 = [r["render"] for r in two]
+    r1 = one[0]["render"]
+    want_per_rank = -(-240 * 320 // (RENDER_CHUNK * RAY_WIDTH))
+    frame_err = 0.0
+    for r in r2:
+        if r["launches"] != (want_per_rank, 0):
+            fail(f"parallel: ray-sharded frame launches (f32, bf16) {r['launches']}, expected "
+                 f"({want_per_rank}, 0) per rank")
+        if not torch.equal(r["mask"], r1["mask"]):
+            fail("parallel: the ray-sharded frame's mask differs from render_image's")
+        for k in ("rgb", "depth"):
+            frame_err = max(frame_err, float((r[k] - r1[k]).abs().max()))
+    if r1["launches"] != (2 * want_per_rank, 0) or not frame_err <= FRAME_TOL:
+        fail(f"parallel: ray-sharded frame {frame_err:.3g} from render_image "
+             f"({r1['launches']} launches alone)")
+    frame_ms = statistics.median(r2[0]["frame_ms"] + r2[1]["frame_ms"])
+    per_rank = r2[0]["launches"][0]
+    print(f"parallel: render_image_ray_sharded 240x320 at ray width {RAY_WIDTH} (gloo, one "
+          f"card): {per_rank} f32 launches per rank (render_image alone "
+          f"{r1['launches'][0]}), rgb and depth {frame_err:.3g} from render_image; median "
+          f"{frame_ms:.2f} ms/frame (alone {statistics.median(r1['frame_ms']):.2f}), "
+          f"all_gather median {statistics.median(r2[0]['gather_ms']):.3f} ms; {card}")
+
+    # the multi-process test CLI
+    e2 = [r["test"] for r in two]
+    e1 = one[0]["test"]
+    if e2[0]["table"] != e2[1]["table"]:
+        fail("parallel: the ranks' tables differ")
+    if nccl[0]["test"]["table"] != e1["table"]:
+        fail(f"parallel (b): one process's cli.test run again (1 NCCL rank) gives another "
+             f"table: {nccl[0]['test']['table']} against {e1['table']}")
+    worst = _tables_agree(e2[0]["table"], e1["table"], "parallel cli.test 2 ranks vs one")
+    q_ms = statistics.median(e2[0]["query_ms"] + e2[1]["query_ms"])
+    g_ms = statistics.median(e2[0]["gather_ms"] + e2[1]["gather_ms"])
+    print(f"parallel: cli.test on 2 ranks ({len(e2[0]['query_ms'])} + {len(e2[1]['query_ms'])} "
+          f"queries, cascade + refinement, exactly {e2[0]['launches'][-1]} bf16 launches each, "
+          f"noise by test index): tables equal on both ranks, within {worst:.3g} of the "
+          f"bound from one process (counts and pose_acc equal; a rerun's table equal); "
+          f"median {q_ms:.2f} ms/query (one process "
+          f"{statistics.median(e1['query_ms']):.2f}), gather median {g_ms:.3f} ms; table "
+          f"{json.dumps(e2[0]['table']['avg'])}; {card}")
+    return {"ddp_train_ms_per_step": ddp_ms, "ddp_grad_allreduce_ms": red_ms,
+            "ddp_grad_allreduce_bytes": grad_bytes, "nccl_grad_allreduce_ms": nccl_ms,
+            "ddp_train_launches_per_step_per_rank": t2[0]["launches"][-1],
+            "ray_sharded_frame_ms": frame_ms, "ray_sharded_launches_per_rank": per_rank,
+            "ddp_eval_ms_per_query": q_ms, "ddp_eval_launches_per_query": e2[0]["launches"][-1],
+            "ddp_gather_ms": g_ms}
+
+
+def _top_k_agree(pkls, cpu_descs, scenes, tol: float, what: str):
+    """Each card top-k list against the CPU's: equal, or equal up to ties,
+    i.e. position by position the CPU similarities of the two entries
+    within `tol` (and entries one list has beyond the other's end within
+    `tol` of the similarity cut at 0). Returns (lists equal, lists equal up
+    to ties, the smallest gap between neighbouring similarities)."""
+    import numpy as np
+    from nerfloc_tpu_torch.data.scene_store import SceneStore
+    same = ties = 0
+    gap = math.inf
+    for i, (base, scene) in enumerate(scenes):
+        store = SceneStore.load(base, scene)
+        d_train, d_test = (np.asarray(d, np.float64) for d in cpu_descs[2 * i:2 * i + 2])
+        index = {f["file_name"]: j for j, f in enumerate(store.train_frames)}
+        for split, dq, frames in (("train", d_train, store.train_frames),
+                                  ("test", d_test, store.test_frames)):
+            q_index = {f["file_name"]: j for j, f in enumerate(frames)}
+            for q, got in pkls[("cuda", scene, split)].items():
+                want = pkls[("cpu", scene, split)][q]
+                sims = [float(dq[q_index[q]] @ d_train[index[n]]) for n in want]
+                gap = min([gap] + [abs(a - b) for a, b in zip(sims, sims[1:])])
+                if got == want:
+                    same += 1
+                    continue
+                sg = [float(dq[q_index[q]] @ d_train[index[n]]) for n in got]
+                n = min(len(sg), len(sims))
+                ok = all(abs(a - b) <= tol for a, b in zip(sg[:n], sims[:n])) and \
+                    all(abs(v) <= tol for v in sg[n:] + sims[n:])
+                if not ok:
+                    fail(f"{what}: {scene} {split} {q}: card {got} ({sg}) against CPU {want} "
+                         f"({sims}), not within ties of {tol:.3g}")
+                ties += 1
+    return same, ties, gap
+
+
+def retrieval_on_files(dev, card: str, scenes):
+    """Phase 17: retrieval.pipeline with netvlad and dir at full width
+    (seeded random weights) on the written scenes [(base_dir, scene)], on
+    the card and on the CPU: pkls equal, descriptors within RETRIEVAL_COS."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from nerfloc_tpu_torch.data.scene_store import SceneStore
+    from nerfloc_tpu_torch.retrieval import pipeline as rp
+    descs = []
+    orig = rp.extract_descriptors
+
+    def recorded(*a, **k):
+        descs.append(orig(*a, **k))
+        return descs[-1]
+    rp.extract_descriptors = recorded
+    res = {}
+    try:
+        for method in ("netvlad", "dir"):
+            model = rp.retrieval_model(method)
+            pkls = {}
+            for where in ("cuda", "cpu"):
+                descs.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                n_frames = 0
+                for base, scene in scenes:
+                    store = SceneStore.load(base, scene)
+                    rp.run_scene_retrieval(store, method, RETRIEVAL_K, model=model,
+                                           device=dev if where == "cuda" else "cpu")
+                    n_frames += len(store.train_frames) + len(store.test_frames)
+                    for split in ("train", "test"):
+                        with open(os.path.join(store.scene_dir,
+                                               f"image_retrieval_{split}_{method}.pkl"),
+                                  "rb") as f:
+                            pkls[(where, scene, split)] = pickle.load(f)
+                wall = (time.perf_counter() - t0) * 1e3
+                if where == "cuda":
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    cuda_descs, cuda_wall = list(descs), wall
+            cos = min(float(np.min(np.sum(a * b, axis=1) /
+                                   (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))))
+                      for a, b in zip(cuda_descs, descs))
+            if not 1.0 - cos <= RETRIEVAL_COS:
+                fail(f"retrieval {method}: descriptors' cosine {cos} between card and CPU")
+            # a similarity is known to within 2 eps (unit descriptors eps apart)
+            eps = max(float(np.max(np.linalg.norm(a - b, axis=1)))
+                      for a, b in zip(cuda_descs, descs))
+            same, ties, gap = _top_k_agree(pkls, descs, scenes, 2 * eps + 1e-5,
+                                           f"retrieval {method}")
+            model.to(dev)
+            x = torch.rand(8, 224, 224, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+            with torch.no_grad():
+                model(x)
+                times = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model(x)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3 / 8)
+            ms = statistics.median(times)
+            n_lists = sum(len(t) for (w, _, _), t in pkls.items() if w == "cuda")
+            print(f"retrieval {method}: {len(scenes)} scenes, {n_frames} frames, {n_lists} "
+                  f"top-{RETRIEVAL_K} lists: {same} equal on the card and the CPU, {ties} "
+                  f"equal up to similarity ties within 2 eps + 1e-5 = {2 * eps + 1e-5:.3g} "
+                  f"(eps = {eps:.3g}, the largest distance of a card descriptor from its CPU "
+                  f"one; the closest pair of similarities in any list {gap:.3g}), "
+                  f"descriptors' cosine >= {cos:.7f}; model forward at batch 8, 224x224: "
+                  f"median {ms:.3f} "
+                  f"ms/frame; the pipeline on the card {cuda_wall / n_frames:.2f} ms/frame "
+                  f"(file reads and resizing included), peak memory {peak:.2f} GiB; {card}")
+            res[f"retrieval_{method}_ms_per_frame"] = ms
+            res[f"retrieval_{method}_peak_gib"] = peak
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        rp.extract_descriptors = orig
+    return res
 
 
 def _step_alone_ms(cfg, batches, dev) -> float:
@@ -2247,6 +2823,8 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -2286,6 +2864,14 @@ def main() -> int:
     for line in native.build_report("fused_agg").splitlines():
         if ("ptxas" in line or "spill" in line) and "Compile time" not in line:
             print(f"build report: {line.strip()}")
+
+    import tempfile
+    if sys.argv[1:2] == ["--parallel-only"]:
+        # phases 14 and 16 alone: a quicker check of the parallel path
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as files:
+            par = parallel_on_files(dev, card, clis_on_files(dev, card, files))
+        print(json.dumps(par))
+        return 0
 
     max_err = check_fused_agg(dev)
     max_err_bf16 = check_fused_agg_bf16(dev)
@@ -2343,8 +2929,13 @@ def main() -> int:
     max_err_bf16 = max(max_err_bf16, steps_err)
     train16 = train_full_width(dev, card, torch.bfloat16)
     evals16 = eval_full_width(dev, card, torch.bfloat16)
-    cli = clis_on_files(dev, card)
-    ft = finetune_on_files(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as files:
+        cli = clis_on_files(dev, card, files)
+        ft = finetune_on_files(dev, card, files)
+        par = parallel_on_files(dev, card, cli)
+        retrieval = retrieval_on_files(
+            dev, card, [(cli["cli_root"], s) for s in CLI_SCENES] +
+            [(ft["ft_root"], s) for s in (*FT_OBJECTS, FT_JPEG_SCENE)])
     print(f"train step, full width: f32 {train['train_ms_per_step']:.2f} ms/step (peak "
           f"{train['train_peak_gib']:.2f} GiB), bf16 {train16['train_ms_per_step']:.2f} ms/step "
           f"(peak {train16['train_peak_gib']:.2f} GiB); eval query: f32 "
@@ -2357,7 +2948,8 @@ def main() -> int:
                 "train_launches_per_step": train["train_launches_per_step"], **train_agg,
                 "eval_launches_per_query": evals["eval_launches_per_query"],
                 "refine_launches_per_query": evals["refine_launches_per_query"],
-                **refine_agg},
+                **refine_agg,
+                "ray_sharded_frame_launches_per_rank": par["ray_sharded_launches_per_rank"]},
                {**time_fused_agg(model, cfg, dev, bf16["launches"], max_err_bf16, card,
                                  bf16=True),
                 "render_launches_per_call": bf16["render_launches_per_call"],
@@ -2369,7 +2961,10 @@ def main() -> int:
                 "cli_train_launches_per_step": cli["cli_train_launches_per_step"],
                 "cli_eval_launches_per_query": cli["cli_eval_launches_per_query"],
                 "finetune_train_launches_per_step": ft["ft_train_launches_per_step"],
-                "finetune_eval_launches_per_query": ft["ft_eval_launches_per_query"]}]
+                "finetune_eval_launches_per_query": ft["ft_eval_launches_per_query"],
+                "ddp_train_launches_per_step_per_rank":
+                    par["ddp_train_launches_per_step_per_rank"],
+                "ddp_eval_launches_per_query": par["ddp_eval_launches_per_query"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 Item assembly is numpy and zlib, which release the GIL for their bulk
 work, so a thread pool and a bounded queue overlap data loading with the
 device step. The epoch's order comes from the loader's own Generator
-(seeded once), as in the JAX package.
+(seeded once), as in the JAX package. A data-parallel rank keeps the same
+global order (the same seed on every rank) and loads only its rows of
+each global batch.
 """
 from __future__ import annotations
 
@@ -20,11 +22,18 @@ from .batching import device_batch, stack_batches
 class BatchLoader:
     """Iterates stacked host batches of `batch_size` items, prefetching
     `prefetch` batches ahead with `num_workers` threads. An exception in a
-    worker is raised by the iterator."""
+    worker is raised by the iterator. With `world` > 1 the batches are
+    global and this loader yields rank `rank`'s contiguous
+    batch_size / world rows of each (batch_size must divide by world);
+    len() stays the number of global batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 4,
-                 drop_last: bool = True):
+                 drop_last: bool = True, rank: int = 0, world: int = 1):
+        if batch_size % world or not 0 <= rank < world or (world > 1 and not drop_last):
+            raise ValueError(f"BatchLoader: global batch {batch_size} does not split over "
+                             f"{world} ranks (rank {rank}, drop_last {drop_last})")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -54,7 +63,8 @@ class BatchLoader:
         return out
 
     def epoch(self, epoch: int) -> Iterator[dict]:
-        batches = self.batches(epoch)
+        k = self.batch_size // self.world
+        batches = [idxs[self.rank * k:(self.rank + 1) * k] for idxs in self.batches(epoch)]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

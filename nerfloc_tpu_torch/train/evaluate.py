@@ -9,15 +9,19 @@ are dropped. Items are loaded and stacked by a thread pool one or two
 batches ahead of the step (numpy work that releases the GIL). The
 per-query errors go to the per-scene table of utils.metrics.
 
-One process only: the multi-process gather of the JAX package comes with
-the port's parallelism (torch.distributed).
+In a process group wider than one, each process evaluates the strided
+shard rank::world of the items and the per-query arrays are all-gathered
+(parallel/multihost.py), so every process returns the same table. With
+`query_seed`, each query's noise comes from a generator seeded by the
+seed and the query's index in test_ds, so the table does not depend on
+how the items are split over processes.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,14 +30,20 @@ from ..data import device_batch, stack_batches
 from ..device import DeviceLike, resolve_device
 from ..models.fields.losses import img2mse, mse2psnr
 from ..models.pose_estimator import to_device_batch
+from ..parallel.mesh import world
+from ..parallel.multihost import allgather_metrics, process_shard_indices
 from ..utils.metrics import aggregate_per_scene
+
+_FNAME_BYTES = 256
 
 
 def _prefetch_eval_batches(test_ds, batch_size: int, num_workers: int = 8,
-                           depth: int = 2):
-    """Yield (items, real_count, host_batch) with the final batch padded by
-    repeating its last item."""
-    n = len(test_ds)
+                           depth: int = 2, indices: Optional[Sequence[int]] = None):
+    """Yield (items, real_count, host_batch, item_indices) with the final
+    batch padded by repeating its last item. `indices` restricts the
+    iteration to those items (a process's shard)."""
+    pool_idx = list(range(len(test_ds))) if indices is None else [int(i) for i in indices]
+    n = len(pool_idx)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -54,11 +64,12 @@ def _prefetch_eval_batches(test_ds, batch_size: int, num_workers: int = 8,
                 for start in range(0, n, batch_size):
                     if stop.is_set():
                         return
-                    idxs = list(range(start, min(start + batch_size, n)))
+                    idxs = pool_idx[start:start + batch_size]
                     real = len(idxs)
-                    idxs += [idxs[-1]] * (batch_size - real)
+                    idxs = idxs + [idxs[-1]] * (batch_size - real)
                     items = list(pool.map(lambda i: test_ds[i], idxs))
-                    if not put((items, real, stack_batches([device_batch(i) for i in items]))):
+                    if not put((items, real, stack_batches([device_batch(i) for i in items]),
+                                idxs)):
                         return
             put(None)
         except BaseException as e:  # the consumer raises it
@@ -77,25 +88,59 @@ def _prefetch_eval_batches(test_ds, batch_size: int, num_workers: int = 8,
         stop.set()
 
 
+def _encode_names(names: Sequence[str]) -> np.ndarray:
+    """Strings -> fixed-width [N, 256] uint8 rows, so file names cross the
+    same tensor all-gather as the metric arrays."""
+    arr = np.zeros((len(names), _FNAME_BYTES), np.uint8)
+    for i, s in enumerate(names):
+        b = s.encode("utf-8")[:_FNAME_BYTES]
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return arr
+
+
+def _decode_names(arr) -> List[str]:
+    return [bytes(row[row != 0]).decode("utf-8") for row in np.asarray(arr)]
+
+
+def query_generator(seed: Union[int, Sequence[int]], index: int,
+                    device: torch.device) -> torch.Generator:
+    """The generator of test item `index`'s noise under `seed` (an int or
+    a tuple of ints, e.g. (seed, epoch)): a 64-bit hash of both, so no
+    seed or index overflows it."""
+    key = [int(s) % 2 ** 64 for s in np.atleast_1d(np.asarray(seed, dtype=object))]
+    state = np.random.SeedSequence([*key, int(index)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def eval_dataset(test_ds, eval_step: Callable, batch_size: int,
                  scene_names: Dict[int, str], cfg, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
-                 collect_poses: bool = False) -> Dict:
+                 collect_poses: bool = False,
+                 query_seed: Union[int, Sequence[int], None] = None) -> Dict:
     """The per-scene table (utils.metrics.aggregate_per_scene: median
     errors, pose_acc, n, the mean matching_iou) of eval_step over test_ds,
     with 'files' under 'avg', and with collect_poses the predicted and
-    ground-truth poses by filename under '_poses'. Batches go to `device`
-    (CUDA unless the caller asks for another); the eval step's noise comes
-    from `generator`."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("eval_dataset: multi-process evaluation is not ported")
+    ground-truth poses by filename under '_poses' (in test-set order).
+    Batches go to `device` (CUDA unless the caller asks for another); the
+    eval step's noise comes from `generator`, or with `query_seed` from
+    query_generator(query_seed, index) per query. In a process group of
+    `world` processes each evaluates its strided shard and the results are
+    all-gathered: identical on every process. Fewer items than processes
+    raise ValueError (before any collective)."""
     dev = resolve_device(device)
+    rank, nprocs = world()
+    multiproc = nprocs > 1
+    if multiproc and len(test_ds) < nprocs:
+        raise ValueError(f"multi-process eval needs len(test_ds) >= world size "
+                         f"({len(test_ds)} < {nprocs})")
+    indices = process_shard_indices(len(test_ds), rank, nprocs) if multiproc else None
     name_to_id = {v: k for k, v in scene_names.items()}
     rot, trans, ious, poses_pred = [], [], [], []
     sids, scales, files, poses_gt = [], [], [], []
-    for items, real, host in _prefetch_eval_batches(test_ds, batch_size):
-        out = eval_step(to_device_batch(host, dev), generator=generator)
+    for items, real, host, idxs in _prefetch_eval_batches(test_ds, batch_size, indices=indices):
+        gen = generator if query_seed is None else \
+            [query_generator(query_seed, i, dev) for i in idxs]
+        out = eval_step(to_device_batch(host, dev), generator=gen)
         rot.append(out["rot_err_deg"][:real].cpu().numpy())
         trans.append(out["trans_err_m"][:real].cpu().numpy())
         ious.append(out["matching_iou"][:real].cpu().numpy())
@@ -105,16 +150,25 @@ def eval_dataset(test_ds, eval_step: Callable, batch_size: int,
         if collect_poses:
             poses_pred.append(out["pose_pred"][:real].cpu().numpy())
             poses_gt.extend(np.asarray(it["pose"]) for it in items[:real])
-    results = aggregate_per_scene(
-        np.asarray(sids), np.concatenate(rot), np.concatenate(trans), scene_names,
-        np.asarray(scales), rot_thresh=cfg.rotation_eval_thresh,
-        trans_thresh=cfg.translation_eval_thresh, dataset_type=cfg.dataset_type,
-        extras={"matching_iou": np.concatenate(ious)})
-    results["avg"]["files"] = len(files)
+    local = {"rot": np.concatenate(rot), "trans": np.concatenate(trans),
+             "sid": np.asarray(sids, np.int64), "scale": np.asarray(scales, np.float64),
+             "iou": np.concatenate(ious)}
     if collect_poses:
-        results["_poses"] = {"filenames": files,
-                             "poses_pred": np.concatenate(poses_pred, axis=0),
-                             "poses_gt": np.stack(poses_gt)}
+        local.update(pose_pred=np.concatenate(poses_pred, axis=0), pose_gt=np.stack(poses_gt))
+    if multiproc:
+        if collect_poses:
+            local["fname"] = _encode_names(files)
+        local = allgather_metrics(local, indices, len(test_ds))
+        if collect_poses:
+            files = _decode_names(local["fname"])
+    results = aggregate_per_scene(
+        local["sid"], local["rot"], local["trans"], scene_names, local["scale"],
+        rot_thresh=cfg.rotation_eval_thresh, trans_thresh=cfg.translation_eval_thresh,
+        dataset_type=cfg.dataset_type, extras={"matching_iou": local["iou"]})
+    results["avg"]["files"] = len(test_ds) if multiproc else len(files)
+    if collect_poses:
+        results["_poses"] = {"filenames": files, "poses_pred": local["pose_pred"],
+                             "poses_gt": local["pose_gt"]}
     return results
 
 

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..configs import Config
@@ -87,6 +88,16 @@ class TrainState:
         self.params = list(model.parameters())
         self.step = 0
         self.opt_state = self.tx.init(sum(p.numel() for p in self.params), model_device(model))
+
+    def broadcast(self, group: dist.ProcessGroup) -> None:
+        """Make every rank of `group` hold its first rank's state: the
+        model's parameters and buffers, the moments and the update count."""
+        src = dist.get_global_rank(group, 0)
+        for t in [*self.model.state_dict().values(), *self.opt_state.values()]:
+            dist.broadcast(t, src, group=group)
+        step = torch.tensor([self.step], dtype=torch.int64, device=model_device(self.model))
+        dist.broadcast(step, src, group=group)
+        self.step = int(step)
 
     def apply_gradients(self, grads: Tensor) -> None:
         """One update from the flat gradient of every parameter

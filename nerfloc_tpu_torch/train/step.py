@@ -1,10 +1,16 @@
 """The train and eval steps (counterpart of nerfloc_tpu/train/step.py
-`make_train_step` and `make_eval_step`, on one device: data parallelism
-comes later).
+`make_train_step` and `make_eval_step`).
 
 A train step over a batch of B queries runs each query's forward and
 backward in turn, with its loss divided by B: the gradients add up to the
 gradient of the mean loss, and only one query's graph is alive at a time.
+With a data-parallel process group of n ranks, each rank runs its B
+queries of the global batch of n*B and the flat gradient and the metrics
+are all-reduced to their means over the group before the update, as the
+JAX package's sharded step does; the noise is drawn for the whole global
+batch from the generator every rank seeds alike, each rank keeping its
+rows, so the n-rank step is the one-process step at n*B up to the order
+of float sums.
 
 An eval step localizes each of its B queries in turn (the JAX package
 vmaps them): the first matching pass and PnP, the cascade pass with its
@@ -15,9 +21,10 @@ against the ground-truth pairs.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from ..configs import Config
 from ..solve.pnp import count_pose_inliers, gumbel_noise, ransac_pnp
@@ -33,15 +40,37 @@ CASCADE_SLACK = 0.95    # share of the first pass's inliers the cascade pose mus
 REFINE_STEPS, REFINE_LR = 50, 1e-3
 
 
-def make_train_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
+def _global_noise(model, cfg: Config, batch: Mapping[str, Tensor], n_queries: int,
+                       generator: Optional[torch.Generator]) -> Tuple[Tensor, Optional[Tensor]]:
+    """(kp_gumbel [n_queries, P_coarse], ray_idx [n_queries, N_rand] or
+    None) drawn as train_forward draws them, query after query: the noise
+    a one-process step over n_queries queries of batch's shapes takes."""
+    dev = model.device
+    b0 = {k: v[0] for k, v in batch.items()}
+    H, W = b0["image"].shape[0], b0["image"].shape[1]
+    P = model.n_coarse_points(b0)
+    kps, idxs = [], []
+    for _ in range(n_queries):
+        kps.append(gumbel_noise((P,), generator, dev))
+        if cfg.train_nerf:
+            idxs.append(torch.randperm(H * W, generator=generator,
+                                       device=dev)[:cfg.render.N_rand])
+    return torch.stack(kps), (torch.stack(idxs) if idxs else None)
+
+
+def make_train_step(model, cfg: Config, group: Optional[dist.ProcessGroup] = None
+                    ) -> Callable[..., Dict[str, Tensor]]:
     """Returns train_step(state, batch, kp_gumbel=None, ray_idx=None,
     generator=None) -> metrics, for a TrainState of `model`.
 
-    batch: the query fields with a leading axis B. kp_gumbel [B, P_coarse]
-    and ray_idx [B, N_rand] are the noise of train_forward, drawn from
-    `generator` where not given. The metrics are 0-d tensors on the model's
-    device: the means over B of loss and of its terms, fine_err, psnr and
-    matching_iou, and grad_norm, the global norm of the raw gradients."""
+    batch: the query fields with a leading axis B (this rank's rows of the
+    global batch under `group`). kp_gumbel [B, P_coarse] and ray_idx
+    [B, N_rand] are the noise of train_forward, drawn from `generator`
+    where not given; under `group` they are the global batch's
+    ([n*B, ...]), given or drawn, and each rank takes its rows. The metrics
+    are 0-d tensors on the model's device: the means over the (global)
+    batch of loss and of its terms, fine_err, psnr and matching_iou, and
+    grad_norm, the global norm of the (all-reduced) raw gradients."""
 
     def train_step(state: TrainState, batch: Mapping[str, Tensor],
                    kp_gumbel: Optional[Tensor] = None, ray_idx: Optional[Tensor] = None,
@@ -49,6 +78,14 @@ def make_train_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
         if state.model is not model:
             raise ValueError("train_step: the state holds another model")
         B = batch["image"].shape[0]
+        if group is not None:
+            n, r = dist.get_world_size(group), dist.get_rank(group)
+            if kp_gumbel is None:
+                kp_gumbel, drawn_idx = _global_noise(model, cfg, batch, n * B, generator)
+                ray_idx = drawn_idx if ray_idx is None else ray_idx
+            rows = slice(r * B, (r + 1) * B)
+            kp_gumbel = kp_gumbel[rows]
+            ray_idx = None if ray_idx is None else ray_idx[rows]
         model.zero_grad(set_to_none=True)
         sums: Dict[str, Tensor] = {}
         for b in range(B):
@@ -66,6 +103,14 @@ def make_train_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
             del out
         metrics = {k: v / B for k, v in sums.items()}
         g = flat_grads(state.params)
+        if group is not None:
+            n = dist.get_world_size(group)
+            dist.all_reduce(g, group=group)
+            g = g / n
+            names = sorted(metrics)
+            means = torch.stack([metrics[k].float() for k in names])
+            dist.all_reduce(means, group=group)
+            metrics = dict(zip(names, means / n))
         metrics["grad_norm"] = torch.sqrt(torch.sum(g * g))
         state.apply_gradients(g)
         return metrics
@@ -81,7 +126,8 @@ def make_eval_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
 
     batch: the query fields with a leading axis B, on the model's device.
     noise: optional {name: [B, ...] tensor} for any of the four random
-    streams, drawn from `generator` (on the model's device) where not given:
+    streams, drawn from `generator` (on the model's device; or a list of
+    B generators, one per query) where not given:
     kp_gumbel [P_coarse] (keypoint draw), pnp_gumbel and pnp2_gumbel
     [n_hyps, n_keypoints] (RANSAC minimal sets of the two passes) and
     refine_uv [pose_refine_rays, 2] (refinement pixels)."""
@@ -133,14 +179,19 @@ def make_eval_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
                 "pose_pred": pose, "pnp_success": pnp.success}
 
     @torch.no_grad()
-    def eval_step(batch: Mapping[str, Tensor], generator: Optional[torch.Generator] = None,
+    def eval_step(batch: Mapping[str, Tensor],
+                  generator: Union[None, torch.Generator, Sequence[torch.Generator]] = None,
                   noise: Optional[Mapping[str, Tensor]] = None) -> Dict[str, Tensor]:
         unknown = set(noise or {}) - set(NOISE)
         if unknown:
             raise ValueError(f"eval_step: unknown noise {sorted(unknown)}")
-        outs = [one({k: v[i] for k, v in batch.items()}, generator,
+        B = batch["image"].shape[0]
+        gens = list(generator) if isinstance(generator, (list, tuple)) else [generator] * B
+        if len(gens) != B:
+            raise ValueError(f"eval_step: {len(gens)} generators for {B} queries")
+        outs = [one({k: v[i] for k, v in batch.items()}, gens[i],
                     {k: v[i] for k, v in (noise or {}).items()})
-                for i in range(batch["image"].shape[0])]
+                for i in range(B)]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return eval_step

@@ -14,6 +14,7 @@ in `named_modules()` is its flax path. Conversions:
   LayerNorm scale/bias         -> weight/bias
   INorm, LayerNormSC scale/bias -> scale/bias
   FrozenBatchNorm ('frozen' collection) -> buffers of the same names
+`load_flax_retrieval` adds the retrieval models' free parameters.
 `agg_params_from_flax` builds the fused kernel's weights straight from a
 ConditionalNeRF flax tree, as extract_agg_params does in the JAX package.
 """
@@ -135,3 +136,16 @@ def agg_params_from_flax(nerf_params: Tree, n_freqs: int,
         "a_wv": t(at["w_vs"]["kernel"]), "a_wfc": t(at["fc"]["kernel"]),
         "ln_s": t(at["layer_norm"]["scale"]), "ln_b": t(at["layer_norm"]["bias"]),
     }
+
+
+def load_flax_retrieval(module: nn.Module, variables: Tree) -> List[str]:
+    """load_flax_variables for the retrieval models (retrieval/netvlad.py
+    NetVLAD, retrieval/gem.py GeMDescriptor), whose trees also hold a
+    parameter outside any layer: NetVLAD's `centers` [K, C] and GeM's
+    scalar exponent `p`. Returns the flax leaves left unused."""
+    unused = load_flax_variables(module, variables)
+    for name in ("centers", "p"):
+        if f"params/{name}" in unused:
+            _set(getattr(module, name), variables["params"][name])
+            unused.remove(f"params/{name}")
+    return unused

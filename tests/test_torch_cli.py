@@ -375,11 +375,14 @@ def test_clis_default_to_cuda(scenes, tmp_path):
 
 
 def test_test_cli_refuses_what_is_not_ported(scenes, tmp_path):
-    """--ray_shards > 1 raises. vis_3d_box is ported: on scenes without an
-    object box the CLI draws nothing, as the JAX CLI skips items without
-    bbox3d_corners (tests/test_torch_finetune.py draws boxes)."""
+    """--ray_shards 2 needs a ray group of 2 ranks: one process without
+    torchrun raises, as the JAX CLI's mesh does with too few devices
+    (tests/test_torch_parallel.py runs it on 2 ranks). vis_3d_box is
+    ported: on scenes without an object box the CLI draws nothing, as the
+    JAX CLI skips items without bbox3d_corners (tests/test_torch_finetune.py
+    draws boxes)."""
     _, data = scenes
-    with pytest.raises(NotImplementedError, match="ray_shards"):
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         cli_test.main(["--ray_shards", "2", "--device", "cpu"])
     cfg = tmp_path / "c.yaml"
     cfg.write_text(_cfg_text(data, epochs=1, full=False,
