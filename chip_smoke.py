@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parallel-only   # phase 1, then phases 14 and 16
+    python3 chip_smoke.py --prep-only       # phase 1, then phase 18
 
 Phases (any failure exits non-zero):
-  1. build every hand-written kernel from csrc/ (one nvcc per source);
+  1. build every hand-written kernel from csrc/ (one nvcc per source:
+     fused_agg.cu and tsdf.cu) and the host helpers;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (and a ragged N), forward and one gradient;
   3. the port's CUDA path against its CPU path (the plain versions, held
@@ -160,8 +162,36 @@ Phases (any failure exits non-zero):
      the largest distance of a card descriptor from its CPU one), the
      descriptors' cosine within RETRIEVAL_COS of 1; ms per frame of the
      model at batch 8, 224x224, and peak memory.
-The last lines are a `kernels` JSON object, the card's name and power
-limit, and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
+ 18. offline scene preparation on the card: (a) a raw 7-Scenes-layout
+     scene written by data.synthetic.write_seven_scenes_raw at the
+     dataset's 640x480 and the preprocessor's own f = 525, cx 320, cy 240
+     (two train sequences and one test sequence of PREP_FRAMES frames;
+     the cut is the frame count), preprocess.seven_scenes at its defaults
+     (voxel 0.02, stride 5) with --device cuda, the counters set to 0 just
+     before it and read just after (exactly one tsdf launch per fused
+     frame, no fused_agg launch), then with --device cpu on a copy of the
+     raw scene: the card's volume (tsdf, weight, r, g, b) bit-equal to the
+     host copy's after the last frame, both pkls and pc.ply byte-equal;
+     the kernel's device ms per frame (CUDA events around each launch on a
+     fresh volume, frames on the card; median over two passes), its bound
+     (the updated voxels' 40 bytes and the frame's own bytes at 3.35 TB/s,
+     or its float operations at the FP32 peak, whichever is larger), voxels
+     per second, the host copy's ms per frame, peak memory, the end-to-end
+     time split into frame reads, percentiles, bounds, integration,
+     extraction and writes; (b) retrieval.pipeline (netvlad, seeded
+     weights) on the preprocessed scene, cli.train one epoch at
+     configs/7scenes_all.yaml (its data YAML's tempo_interval PREP_TEMPO
+     leaves a few steps; exactly 3 bf16 fused_agg launches each), cli.test
+     on its two test queries (exactly 55 each); (c) the 12-Scenes, OnePose
+     and Cambridge (--no-mvs) preprocessors on raw scenes of their own
+     layouts and sizes, and their outputs and a COLMAP workspace through
+     build_dataset at configs/12scenes/apt1_kitchen.yaml,
+     onepose/0447.yaml, cambridge/KingsCollege.yaml and (colmap)
+     7scenes_all.yaml: every item finite, at its config's shapes.
+The last lines are a `kernels` JSON object (fused_agg, fused_agg_bf16 and
+tsdf_integrate, the kernel of phase 18, which replaces host code of the
+JAX package rather than a TPU kernel), the card's name and power limit,
+and {"ok": true, "device": {...}}. Without CUDA it exits 2 and
 prints no result. `chip_smoke.py --worker <spec.json>` is one process of
 phase 16 (the script starts it).
 """
@@ -832,8 +862,10 @@ def launch_counts():
 
 
 def zero_launch_counts():
+    """Sets every kernel's launch count to 0 (fused_agg's and tsdf's)."""
+    from nerfloc_tpu_torch.native import tsdf
     from nerfloc_tpu_torch.ops import fused_agg as fa
-    fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = 0
+    fa.LAUNCHES.n = fa.LAUNCHES_BF16.n = tsdf.LAUNCHES.n = 0
 
 
 def expect_launches(n: int, bf16: bool, what: str):
@@ -2696,6 +2728,350 @@ def retrieval_on_files(dev, card: str, scenes):
     return res
 
 
+# phase 18: scene preparation on the card. A 7-Scenes-layout scene at the
+# dataset's own 640x480 and f = 525 (preprocess.seven_scenes' constants):
+# two train sequences and one test sequence of PREP_FRAMES frames each
+# (the cut: the frame counts), preprocessed at the module's defaults (voxel
+# 0.02, stride 5); the data YAML's tempo_interval PREP_TEMPO leaves the
+# CLIs a few train steps and two test queries
+PREP_SCENE, PREP_FRAMES, PREP_TEMPO = "chess", 40, 20
+PREP_TRAIN_SEQS, PREP_TEST_SEQS = (1, 2), (3,)
+TSDF_BYTES_PER_UPDATE = 40        # a voxel the frame updates: 5 floats read, 5 written
+
+
+class Buckets:
+    """Host-clock time of wrapped callables, by bucket; each call
+    synchronized on the card when `sync`. `restore` unwraps them all."""
+
+    def __init__(self, sync: bool):
+        self.sync, self.ms, self.wrapped = sync, defaultdict(float), []
+
+    def wrap(self, owner, name: str, bucket: str, record=None):
+        import torch
+        orig, raw = getattr(owner, name), vars(owner)[name]
+
+        def timed(*a, **k):
+            if self.sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.ms[bucket] += (time.perf_counter() - t0) * 1e3
+            if record is not None:
+                record.append((a, (time.perf_counter() - t0) * 1e3))
+            return out
+        setattr(owner, name, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+        self.wrapped.append((owner, name, raw))
+
+    def restore(self):
+        for owner, name, raw in reversed(self.wrapped):
+            setattr(owner, name, raw)
+        self.wrapped.clear()
+
+
+def _preprocess_seven_scenes(root: str, device: str):
+    """preprocess.seven_scenes.main on `root` for PREP_SCENE on `device`,
+    its stages timed (frame reads, percentiles, the frusta's bounds,
+    integration, extraction, writes). Returns (wall ms, buckets, the
+    integrate calls [(args, ms)], the volumes made)."""
+    from nerfloc_tpu_torch.native import tsdf as ntsdf
+    from nerfloc_tpu_torch.preprocess import common, seven_scenes
+    b = Buckets(sync=device == "cuda")
+    integrations, volumes = [], []
+    orig_init = ntsdf.TSDFVolume.__init__
+
+    def init(self, *a, **k):
+        orig_init(self, *a, **k)
+        volumes.append(self)
+    for name in ("load_image", "load_depth", "load_pose_txt"):
+        b.wrap(seven_scenes, name, "frame reads")
+    b.wrap(seven_scenes, "frame_near_far", "percentiles")
+    b.wrap(ntsdf.TSDFVolume, "frustum_bounds", "bounds")
+    b.wrap(ntsdf.TSDFVolume, "integrate", "integration", record=integrations)
+    b.wrap(ntsdf.TSDFVolume, "get_point_cloud", "extraction")
+    b.wrap(seven_scenes, "write_info", "writes")
+    b.wrap(common, "write_ply_points", "writes")
+    ntsdf.TSDFVolume.__init__ = init
+    try:
+        t0 = time.perf_counter()
+        rc = seven_scenes.main([root, PREP_SCENE, "--device", device])
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ntsdf.TSDFVolume.__init__ = orig_init
+        b.restore()
+    if rc != 0 or len(volumes) != 1:
+        fail(f"prep: seven_scenes on {device}: rc {rc}, {len(volumes)} volumes")
+    return wall, dict(b.ms), integrations, volumes[0]
+
+
+def _tsdf_cost(vol, frames, dev):
+    """Per frame, on a copy of the volume as it was before the frame: the
+    kernel's device ms (CUDA events around one launch), the voxels it
+    updates, the voxels in front of the camera; integrating the frames in
+    order. Returns ([ms], [updated], [in front])."""
+    import numpy as np
+    import torch
+    from nerfloc_tpu_torch.native import tsdf as ntsdf
+    work = {k: torch.ones_like(v) if k == "tsdf" else torch.zeros_like(v)
+            for k, v in vol.volume().items()}
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    nx, ny, nz = (int(d) for d in vol.dims)
+    vs = np.float32(vol.voxel_size)
+    grid = [torch.as_tensor(vol.origin[a] + np.arange(n, dtype=np.float32) * vs).to(dev)
+            for a, n in enumerate((nx, ny, nz))]
+    ms, updated, front = [], [], []
+    for depth, color, K, c2w in frames:
+        R, t = ntsdf.world_to_camera(c2w)
+        Rt = torch.as_tensor(R).to(dev)
+        pz = (grid[0][:, None, None] * Rt[6] + grid[1][None, :, None] * Rt[7]
+              + float(t[2]) + grid[2][None, None, :] * Rt[8])
+        front.append(int((pz > 0).sum()))
+        del pz
+        before = work["weight"].clone()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        ntsdf.integrate_frame(work, vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc,
+                              depth, color, np.asarray(K, np.float32).reshape(9), R, t, 1.0,
+                              overflow)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        updated.append(int((work["weight"] != before).sum()))
+    return ms, updated, front
+
+
+def prepare_on_files(dev, card: str, files: str):
+    """Phase 18: offline scene preparation on the card (see the module
+    docstring), under files/prep. Returns the tsdf_integrate `kernels`
+    entry and the phase's numbers."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from nerfloc_tpu_torch.cli import test as cli_test
+    from nerfloc_tpu_torch.cli import train as cli_train
+    from nerfloc_tpu_torch.configs import load_config
+    from nerfloc_tpu_torch.data import build_dataset
+    from nerfloc_tpu_torch.data import synthetic as syn
+    from nerfloc_tpu_torch.data.ply import read_ply_points
+    from nerfloc_tpu_torch.native import tsdf as ntsdf
+    from nerfloc_tpu_torch.preprocess import cambridge, onepose, twelve_scenes
+    from nerfloc_tpu_torch.retrieval import pipeline as rp
+    t_phase = time.perf_counter()
+    with _subdir(files, "prep") as root:
+        # (a) the raw scene, preprocessed on the card and on the CPU
+        card_root, cpu_root = os.path.join(root, "card"), os.path.join(root, "cpu")
+        t0 = time.perf_counter()
+        syn.write_seven_scenes_raw(card_root, PREP_SCENE, PREP_TRAIN_SEQS, PREP_TEST_SEQS,
+                                   n_frames=PREP_FRAMES)
+        shutil.copytree(card_root, cpu_root)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_launch_counts()
+        wall, parts, calls, vol = _preprocess_seven_scenes(card_root, dev.type)
+        launches = ntsdf.LAUNCHES.n
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        n_fused = len(PREP_TRAIN_SEQS) * len(range(0, PREP_FRAMES, 5))
+        if launches != n_fused or len(calls) != n_fused or launch_counts() != (0, 0):
+            fail(f"prep: {launches} tsdf launches for {len(calls)} integrations of {n_fused} "
+                 f"frames (fused_agg {launch_counts()})")
+        cpu_wall, cpu_parts, cpu_calls, cpu_vol = _preprocess_seven_scenes(cpu_root, "cpu")
+        # the card's volume against the host copy's, after the last frame
+        max_err = 0.0
+        for k, v in vol.volume().items():
+            d = (v.cpu() - cpu_vol.volume()[k]).abs()
+            max_err = max(max_err, float(d.max()))
+            if not torch.equal(v.cpu(), cpu_vol.volume()[k]):
+                fail(f"prep: the card's {k} is not the host copy's: {int((d > 0).sum())} "
+                     f"voxels differ, by at most {float(d.max())}")
+        sd, cd = (os.path.join(r, PREP_SCENE) for r in (card_root, cpu_root))
+        for name in ("info_train.pkl", "info_test.pkl", "pc.ply"):
+            with open(os.path.join(sd, name), "rb") as a, open(os.path.join(cd, name), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"prep: {name} of the cuda run differs from the cpu run's")
+        overflows = (vol.projection_overflows, cpu_vol.projection_overflows)
+        n_vox = int(np.prod(vol.dims))
+        n_points = len(pickle.load(open(os.path.join(sd, "info_train.pkl"), "rb")))
+        xyz, _ = read_ply_points(os.path.join(sd, "pc.ply"))
+        if not (len(xyz) > 1000 and np.isfinite(xyz).all()):
+            fail(f"prep: pc.ply has {len(xyz)} points")
+
+        # the kernel alone, per frame, frames already on the card
+        frames = []
+        for (self_, color, depth, K, c2w, *_), _ms in calls:
+            frames.append((self_._upload(depth), self_._upload(color), K, c2w))
+        k_ms, updated, front = _tsdf_cost(vol, frames, dev)
+        k_ms2, _, _ = _tsdf_cost(vol, frames, dev)
+        host_ms = [ms for _, ms in cpu_calls]
+        H, W = frames[0][0].shape
+        nbytes = [u * TSDF_BYTES_PER_UPDATE + H * W * 16 for u in updated]
+        # float operations: the voxel's centre and depth for every voxel
+        # (12), the rest of its projection for the voxels in front (18),
+        # the update with colour for the updated ones (22)
+        ops = [12 * n_vox + 18 * f + 22 * u for f, u in zip(front, updated)]
+        b_bytes = statistics.median(nbytes) / PEAK_BYTES_PER_S * 1e3
+        b_ops = statistics.median(ops) / PEAK_F32_FLOPS * 1e3
+        bound_ms, bound_by = max((b_bytes, "bytes"), (b_ops, "operations"))
+        kernel_ms = statistics.median(k_ms + k_ms2)
+        if kernel_ms < bound_ms:
+            fail(f"prep: tsdf_integrate reads faster than its bound ({kernel_ms} < {bound_ms})")
+        print(f"prep: wrote {len(PREP_TRAIN_SEQS) + len(PREP_TEST_SEQS)} sequences of "
+              f"{PREP_FRAMES} 640x480 frames in {write_s:.2f} s; volume {vol.dims.tolist()} = "
+              f"{n_vox} voxels at 0.02; {launches} tsdf launches for {n_fused} fused frames "
+              f"(exactly one per frame), the card's volume (tsdf, weight, r, g, b) bit-equal to "
+              f"the host copy's, pkls and pc.ply ({len(xyz)} points) equal to the cpu run's; "
+              f"voxels whose projection left the int range: {overflows[0]} (card), "
+              f"{overflows[1]} (host); {card}")
+        print(f"prep tsdf_integrate: kernel median {kernel_ms:.4f} ms per frame over "
+              f"{len(k_ms) * 2} launches (min {min(k_ms + k_ms2):.4f}, max "
+              f"{max(k_ms + k_ms2):.4f}), {n_vox / kernel_ms / 1e6:.3f} G voxels/s; updated "
+              f"voxels per frame median {statistics.median(updated)}, in front "
+              f"{statistics.median(front)}; bound {bound_ms:.5f} ms by {bound_by} (bytes "
+              f"{statistics.median(nbytes) / 1e6:.3f} MB: {b_bytes:.5f} ms; operations "
+              f"{statistics.median(ops) / 1e6:.1f} M at the FP32 peak: {b_ops:.5f} ms); host "
+              f"copy median {statistics.median(host_ms):.2f} ms per frame (one thread, "
+              f"with the wrapper); the wrapper on the card with the upload "
+              f"{statistics.median([ms for _, ms in calls]):.3f} ms per frame; peak memory of "
+              f"the preprocessing (above what earlier phases hold) {peak:.3f} GiB; {card}")
+        split = {k: round(v, 2) for k, v in parts.items()}
+        print(f"prep end to end ({dev.type}): {wall:.2f} ms for {n_points} train and "
+              f"{len(PREP_TEST_SEQS) * PREP_FRAMES} test frames, {n_fused} of them fused; "
+              f"stages (ms) {json.dumps(split)}; cpu run {cpu_wall:.2f} ms, stages "
+              f"{json.dumps({k: round(v, 2) for k, v in cpu_parts.items()})}; {card}")
+        del frames, vol, cpu_vol
+        torch.cuda.empty_cache()
+
+        # (b) retrieval, cli.train and cli.test on the preprocessed scene
+        data_path = _write_data_yaml(root, "video_7scenes", [PREP_SCENE])
+        doc = json.load(open(data_path))
+        doc.update(base_dir=card_root, tempo_interval=PREP_TEMPO)
+        write_flow_yaml(data_path, doc)
+        overrides = {"dataset_type": data_path, "scenes": [PREP_SCENE], "max_epochs": 1}
+        test_overrides = {**overrides, "cascade_matching": True, "optimize_pose": True}
+        paths = {kind: _write_config(root, f"prep_{kind}", "7scenes_all.yaml", ov)
+                 for kind, ov in (("train", overrides), ("test", test_overrides))}
+        t0 = time.perf_counter()
+        if rp.main(["--config", paths["train"], "--method", "netvlad",
+                    "--device", dev.type]) != 0:
+            fail("prep: retrieval failed")
+        retrieval_s = time.perf_counter() - t0
+        for split in ("train", "test"):
+            table = pickle.load(open(os.path.join(sd, f"image_retrieval_{split}_netvlad.pkl"),
+                                     "rb"))
+            frames = pickle.load(open(os.path.join(sd, f"info_{split}.pkl"), "rb"))
+            if set(table) != {f["file_name"] for f in frames} or \
+                    (split == "test" and not all(table.values())):
+                fail(f"prep: the {split} retrieval pkl misses frames or lists")
+        cfg = load_config(paths["train"])
+        n_train = len(build_dataset(cfg, "train", mode="train"))
+        runs = os.path.join(root, "runs")
+        t0 = time.perf_counter()
+        probe = _train_cli(cli_train, ["--config", paths["train"], "--basedir", runs,
+                                       "--batch", "1", "--eval_interval", "2",
+                                       "--train_render_views", "0", "--device", dev.type],
+                           3, "prep cli train step", n_train)
+        train_s = time.perf_counter() - t0
+        probe.batches.clear()
+        run_dir = os.path.join(runs, cfg.expname or "default", cfg.version)
+        _read_log(run_dir, "prep cli train")
+        out_json = os.path.join(root, "eval", "results.json")
+        t0 = time.perf_counter()
+        tprobe, per_scene = _test_cli(
+            cli_test, ["--config", paths["test"], "--ckpt", os.path.join(run_dir, "ckpts"),
+                       "--out", out_json, "--device", dev.type],
+            EVAL_LAUNCHES, "prep cli eval query", 2, out_json, [PREP_SCENE])
+        test_s = time.perf_counter() - t0
+        print(f"prep pipeline: retrieval (netvlad, seeded weights) {retrieval_s:.2f} s; "
+              f"cli.train {n_train} steps, exactly {probe.launches[-1]} bf16 fused_agg launches "
+              f"each, median {statistics.median(probe.ms):.2f} ms/step, {train_s:.2f} s with "
+              f"the model's set-up; cli.test 2 queries, exactly {tprobe.launches[-1]} each, "
+              f"median {statistics.median(tprobe.ms):.2f} ms/query, {test_s:.2f} s; table "
+              f"{json.dumps(per_scene)}; {card}")
+
+        # (c) the other preprocessors, and the families, through build_dataset
+        t0 = time.perf_counter()
+        other = os.path.join(root, "other")
+        syn.write_twelve_scenes_raw(other, "apt1", "kitchen", n_train=8, n_test=2)
+        syn.write_onepose_raw(other, "0447-synthetic-box", n_seqs=3, n_frames=4)
+        syn.write_cambridge_raw(other, "KingsCollege", n_train=4, n_test=2)
+        syn.write_colmap_workspace(os.path.join(other, "ws"), H=480, W=640)
+        other_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for rc in (twelve_scenes.main([other, "apt1/kitchen"]),
+                   onepose.main([other, "0447-synthetic-box"]),
+                   cambridge.main([other, "KingsCollege", "--no-mvs"])):
+            if rc != 0:
+                fail("prep: a preprocessor failed")
+        other_prep_s = time.perf_counter() - t0
+        checks = [("12scenes/apt1_kitchen.yaml", "video_12scenes", "apt1/kitchen"),
+                  ("onepose/0447.yaml", "video_onepose", "0447-synthetic-box"),
+                  ("cambridge/KingsCollege.yaml", "video_cambridge", "KingsCollege"),
+                  ("7scenes_all.yaml", "colmap", "ws")]
+        counts = {}
+        t0 = time.perf_counter()
+        for base, family, scene in checks:
+            if family == "colmap":
+                ov = {"dataset_type": "colmap", "datadir": other, "scenes": [scene]}
+                hw = (480, 640)
+            else:
+                ov = {"dataset_type": _write_data_yaml(other, family, [scene]),
+                      "scenes": [scene]}
+                pad = [t["PadToSize"] for t in json.load(open(ov["dataset_type"]))["TRANSFORM"]
+                       if "PadToSize" in t][0]
+                hw = (pad["height"], pad["width"])
+            cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "configs", base), ov)
+            for mode in ("train", "test"):
+                ds = build_dataset(cfg, mode, mode=mode)
+                V = cfg.n_views_train if mode == "train" else cfg.n_views_test
+                counts[f"{family}/{mode}"] = len(ds)
+                if len(ds) == 0:
+                    fail(f"prep: {family} {mode} has no items")
+                for i in range(len(ds)):
+                    _check_item(ds[i], hw, V, f"prep {family} {mode} item {i}")
+        items_s = time.perf_counter() - t0
+        print(f"prep other families: wrote 12-Scenes (1296x968 JPEG), OnePose (512x512), "
+              f"Cambridge (1920x1080) and a COLMAP workspace (480x640) in {other_write_s:.2f} s, "
+              f"preprocessed the first three in {other_prep_s:.2f} s (Cambridge --no-mvs); "
+              f"build_dataset items {json.dumps(counts)}, all finite at their configs' shapes, "
+              f"in {items_s:.2f} s; phase 18 {time.perf_counter() - t_phase:.2f} s; {card}")
+    entry = {
+        "name": "tsdf_integrate", "route": "cuda",
+        "source": "nerfloc_tpu_torch/csrc/tsdf.cu",
+        "replaces": "nerfloc_tpu/native/tsdf.cpp:63",
+        "replaces_kind": "host C++ (OpenMP), not a TPU kernel",
+        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+        "plain_ms": statistics.median(host_ms), "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "launches_per": "scene (one per fused frame)",
+        "voxels": n_vox, "voxels_per_s": n_vox / kernel_ms * 1e3, "peak_gib": peak,
+        "prep_ms": wall, "prep_stages_ms": parts, "projection_overflows": overflows[0],
+        "prep_train_launches_per_step": probe.launches[-1],
+        "prep_eval_launches_per_query": tprobe.launches[-1],
+    }
+    return entry
+
+
+def _check_item(item, hw, V: int, what: str):
+    """A dataset item at its config's shapes, its float arrays finite."""
+    import numpy as np
+    H, W = hw
+    want = {"image": (H, W, 3), "depth": (H, W), "pose": (4, 4), "K": (3, 3),
+            "topk_images": (V, H, W, 3), "topk_depths": (V, H, W), "topk_poses": (V, 4, 4),
+            "topk_Ks": (V, 3, 3)}
+    for k, shape in want.items():
+        if tuple(np.shape(item[k])) != shape:
+            fail(f"{what}: {k} has shape {np.shape(item[k])}, expected {shape}")
+    for k, v in item.items():
+        v = np.asarray(v)
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            fail(f"{what}: {k} is not finite")
+
+
 def _step_alone_ms(cfg, batches, dev) -> float:
     """Median ms of make_train_step on a fresh model of the CLI's config
     over `batches` (the CLI's own device batches, after 2 warm-up steps on
@@ -2855,17 +3231,25 @@ def main() -> int:
     # unfilter, JPEG decode and TIFF LZW) with the host's C++ compiler
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        jobs = [pool.submit(native.build_all, ["fused_agg"])] + \
-            [pool.submit(native.build_host, h) for h in ("png_unfilter", "jpeg_decode")]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = [pool.submit(native.build_all, ["fused_agg", "tsdf"])] + \
+            [pool.submit(native.build_host, h)
+             for h in ("png_unfilter", "jpeg_decode", "tsdf_host")]
         for job in jobs:
             job.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, and the host helpers)")
-    for line in native.build_report("fused_agg").splitlines():
-        if ("ptxas" in line or "spill" in line) and "Compile time" not in line:
-            print(f"build report: {line.strip()}")
+    for name in ("fused_agg", "tsdf"):
+        for line in native.build_report(name).splitlines():
+            if ("ptxas" in line or "spill" in line) and "Compile time" not in line:
+                print(f"build report ({name}): {line.strip()}")
 
     import tempfile
+    if sys.argv[1:2] == ["--prep-only"]:
+        # phase 18 alone: scene preparation and its kernel
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as files:
+            prep = prepare_on_files(dev, card, files)
+        print(json.dumps({"kernels": [prep]}))
+        return 0
     if sys.argv[1:2] == ["--parallel-only"]:
         # phases 14 and 16 alone: a quicker check of the parallel path
         with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as files:
@@ -2936,6 +3320,7 @@ def main() -> int:
         retrieval = retrieval_on_files(
             dev, card, [(cli["cli_root"], s) for s in CLI_SCENES] +
             [(ft["ft_root"], s) for s in (*FT_OBJECTS, FT_JPEG_SCENE)])
+        prep = prepare_on_files(dev, card, files)
     print(f"train step, full width: f32 {train['train_ms_per_step']:.2f} ms/step (peak "
           f"{train['train_peak_gib']:.2f} GiB), bf16 {train16['train_ms_per_step']:.2f} ms/step "
           f"(peak {train16['train_peak_gib']:.2f} GiB); eval query: f32 "
@@ -2964,7 +3349,10 @@ def main() -> int:
                 "finetune_eval_launches_per_query": ft["ft_eval_launches_per_query"],
                 "ddp_train_launches_per_step_per_rank":
                     par["ddp_train_launches_per_step_per_rank"],
-                "ddp_eval_launches_per_query": par["ddp_eval_launches_per_query"]}]
+                "ddp_eval_launches_per_query": par["ddp_eval_launches_per_query"],
+                "prep_train_launches_per_step": prep.pop("prep_train_launches_per_step"),
+                "prep_eval_launches_per_query": prep.pop("prep_eval_launches_per_query")},
+               prep]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 `dataset_type` names a data YAML under configs/data/ (the `video_*`
 families: 7-Scenes, 12-Scenes, Cambridge, OnePose layouts) or is a direct
-path to one; its per-scene stores are wrapped in a MultiSceneDataset. A
-data YAML declares base_dir, the scene list, the TRANSFORM / AUG_TRANSFORM
-pipelines and near/far/scale overrides. The blender, llff, dtu and colmap
-families are not ported and raise NotImplementedError.
+path to one, or names one of the families `blender`, `llff`, `dtu` and
+`colmap` (their own layouts: data/*_scene.py); its per-scene stores are
+wrapped in a MultiSceneDataset. A data YAML declares base_dir, the scene
+list, the TRANSFORM / AUG_TRANSFORM pipelines and near/far/scale
+overrides (`data_cfg` adds to it).
 """
 from __future__ import annotations
 
@@ -13,12 +14,39 @@ import os
 from typing import Any, Dict, List, Optional
 
 from ..configs import Config, load_yaml
+from .blender_scene import blender_scene_store
+from .colmap_scene import colmap_scene_store
+from .dtu_scene import dtu_scene_store
+from .llff_scene import llff_scene_store
 from .scene_store import SceneStore
 from .transforms import build_transforms
 from .video_dataset import DataOptions, MultiSceneDataset, VideoDataset
 
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs", "data")
-_UNPORTED_FAMILIES = ("blender", "llff", "dtu", "colmap")
+
+
+def _blender(base_dir: str, scene: str, dc: Dict[str, Any]) -> SceneStore:
+    return blender_scene_store(base_dir, scene, near=float(dc.get("near", 2.0)),
+                               far=float(dc.get("far", 6.0)))
+
+
+def _llff(base_dir: str, scene: str, dc: Dict[str, Any]) -> SceneStore:
+    return llff_scene_store(base_dir, scene, factor=int(dc.get("factor", 4)))
+
+
+def _dtu(base_dir: str, scene: str, dc: Dict[str, Any]) -> SceneStore:
+    return dtu_scene_store(base_dir, scene, light=str(dc.get("light", "3")),
+                           intrinsic_scale=float(dc.get("intrinsic_scale", 4.0)))
+
+
+def _colmap(base_dir: str, scene: str, dc: Dict[str, Any]) -> SceneStore:
+    # one dense workspace per "scene" path
+    return colmap_scene_store(os.path.join(base_dir, scene) if base_dir else scene,
+                              depth_type=dc.get("depth_type", "colmap"), scene=scene)
+
+
+# the families with their own layouts: dataset_type -> store builder
+_FAMILY_STORES = {"blender": _blender, "llff": _llff, "dtu": _dtu, "colmap": _colmap}
 
 
 def load_data_yaml(dataset_type: str) -> Dict[str, Any]:
@@ -34,10 +62,6 @@ def load_data_yaml(dataset_type: str) -> Dict[str, Any]:
 def build_dataset(cfg: Config, split: str, mode: Optional[str] = None,
                   data_cfg: Optional[Dict[str, Any]] = None) -> MultiSceneDataset:
     """split: 'train' | 'test'; mode defaults to split."""
-    if cfg.dataset_type in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"dataset_type {cfg.dataset_type!r} is not supported by the port (the video_* "
-            "families and direct data-YAML paths are)")
     mode = mode or ("train" if split == "train" else "test")
     dc = dict(load_data_yaml(cfg.dataset_type))
     if data_cfg:
@@ -69,6 +93,12 @@ def build_dataset(cfg: Config, split: str, mode: Optional[str] = None,
         max_points=cfg.matching.keypoints_3d_sampling_max_keep,
         aug_ref_depth=bool(dc.get("aug_ref_depth", False)),
     )
+
+    family = _FAMILY_STORES.get(cfg.dataset_type)
+    if family is not None:
+        return MultiSceneDataset([VideoDataset(family(base_dir, scene, dc), split, transforms,
+                                               aug_transforms, opts, mode)
+                                  for scene in scenes])
 
     datasets = []
     for scene in scenes:

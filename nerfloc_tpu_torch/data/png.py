@@ -173,6 +173,19 @@ def read(path: str) -> np.ndarray:
         return decode(f.read(), path)
 
 
+def size(path: str):
+    """(H, W) of the PNG file at `path`, from its IHDR chunk alone (no
+    pixel is decoded). Raises PNGError for a file that is not a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if len(head) < 33 or head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise PNGError(f"{path}: not a PNG file")
+    if zlib.crc32(head[12:29]) != struct.unpack(">I", head[29:33])[0]:
+        raise PNGError(f"{path}: CRC mismatch in chunk b'IHDR'")
+    W, H = struct.unpack(">II", head[16:24])
+    return H, W
+
+
 def _chunk(ctype: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + ctype + body + \
         struct.pack(">I", zlib.crc32(ctype + body))

@@ -164,3 +164,27 @@ def _load_split(scene_dir: str, split: str, retrieval_method: str):
     for fr in frames:
         fr["top_k"] = retrieval.get(fr["file_name"], [])
     return frames, retrieval
+
+
+def attach_pose_retrieval(store: SceneStore, k: int = 10) -> SceneStore:
+    """Fill train/test retrieval by ground-truth pose proximity (the k
+    nearest training cameras), for stores whose layout carries no
+    retrieval pkl (dtu)."""
+    from ..retrieval.pipeline import retrieve_top_k_oracle
+
+    def poses_of(frames):
+        return {f["file_name"]: np.linalg.inv(_tcw44(f["extrinsic_Tcw"]))
+                for f in frames}
+
+    db = poses_of(store.train_frames)
+    if not db:
+        return store
+    store.train_retrieval = retrieve_top_k_oracle(
+        poses_of(store.train_frames), db, k, allow_self_match=False)
+    store.test_retrieval = retrieve_top_k_oracle(
+        poses_of(store.test_frames), db, k, allow_self_match=True)
+    for frames, retrieval in ((store.train_frames, store.train_retrieval),
+                              (store.test_frames, store.test_retrieval)):
+        for fr in frames:
+            fr["top_k"] = retrieval.get(fr["file_name"], [])
+    return store

@@ -10,17 +10,22 @@ JAX package's tools/e2e_pose_study.write_scene does; `write_object_scene`
 writes an object scene in the OnePose preprocessor's layout (a textured
 object box inside the room, float32 MVS depth as TIFF) and
 `write_twelve_scenes_scene` a scene in the 12-Scenes preprocessor's layout
-(JPEG colour frames larger than their 16-bit depth PNGs).
+(JPEG colour frames larger than their 16-bit depth PNGs). The
+`write_*_raw` writers produce the datasets' raw layouts, which the
+preprocessors read (7-Scenes, 12-Scenes, OnePose, Cambridge Landmarks), and
+`write_colmap_workspace` a COLMAP dense workspace.
 """
 from __future__ import annotations
 
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import numpy as np
 
 from . import jpeg, png, tiff
+from .colmap_io import Camera, Image, Point3D, rotmat2qvec, write_model
 from .ply import write_ply_points
 
 # (texture variant, box half-extent, camera orbit radius scale) of visually
@@ -420,3 +425,336 @@ def write_twelve_scenes_scene(root: str, scene: str = "apt1/kitchen", n_train: i
         return render_box_view(c2w, K_, h, w, box_half=box_half, tex=tex)
     c2ws = [np.linalg.inv(np.vstack([fr["extrinsic_Tcw"], [0, 0, 0, 1]])) for fr in train[::6]]
     write_ply_points(os.path.join(sd, "pc.ply"), _backproject(c2ws, K, W, H, render))
+
+
+# ---------------------------------------------------------------------------
+# Raw dataset layouts: what the preprocessors (nerfloc_tpu_torch/preprocess/)
+# read, as the datasets ship it. The writers above produce their output.
+# ---------------------------------------------------------------------------
+
+def _mm(depth: np.ndarray, max_depth=None) -> np.ndarray:
+    """Depth in metres -> uint16 millimetres, 65535 (the sensors' invalid
+    marker) beyond max_depth."""
+    mm = (depth * 1000).astype(np.uint16)
+    if max_depth is not None:
+        mm[depth > max_depth] = 65535
+    return mm
+
+
+def _each(fn, jobs) -> None:
+    """fn(job) for every job on a few threads (numpy and zlib release the
+    interpreter lock in their loops)."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for _ in pool.map(fn, jobs):
+            pass
+
+
+def write_seven_scenes_raw(root: str, scene: str = "chess", train_seqs=(1, 2),
+                           test_seqs=(3,), n_frames: int = 30, H: int = 480, W: int = 640,
+                           focal: float = 525.0, box_half: float = 2.0, tex: int = 0,
+                           max_depth=3.5, rendered_depth: bool = False) -> None:
+    """A scene in 7-Scenes' raw layout under root/scene:
+    seq-XX/frame-XXXXXX.{color.png,depth.png,pose.txt} (RGB PNG, 16-bit
+    millimetre depth PNG with 65535 beyond max_depth as the Kinect leaves
+    it, 4x4 camera-to-world text), TrainSplit.txt and TestSplit.txt
+    ('sequenceN' lines) and, with rendered_depth, the train frames' full
+    depth as 16-bit millimetre TIFFs under
+    rendered_depth/train/depth/seqXX_frame-XXXXXX.pose.depth.tiff. The
+    frames (H x W, focal length `focal`, principal point at the centre)
+    look at the walls of render_box_view's textured room; each sequence
+    sweeps its own arc of n_frames views."""
+    sd = os.path.join(root, scene)
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1.0]])
+    r_eye = 0.3 * box_half / 2.0
+    rd = os.path.join(sd, "rendered_depth", "train", "depth")
+    if rendered_depth:
+        os.makedirs(rd, exist_ok=True)
+    jobs = []
+    for k, seq in enumerate((*train_seqs, *test_seqs)):
+        os.makedirs(os.path.join(sd, f"seq-{seq:02d}"), exist_ok=True)
+        poses, _ = _orbit(n_frames, 0.05 + 2.1 * k, 1.5 / n_frames, r_eye, box_half, 0.2)
+        jobs += [(seq, i, c2w) for i, c2w in enumerate(poses)]
+
+    def write(job):
+        seq, i, c2w = job
+        rgb, depth = render_box_view(c2w, K, H, W, box_half=box_half, tex=tex)
+        stem = os.path.join(sd, f"seq-{seq:02d}", f"frame-{i:06d}")
+        png.write(stem + ".color.png", (rgb * 255).astype(np.uint8))
+        png.write(stem + ".depth.png", _mm(depth, max_depth))
+        np.savetxt(stem + ".pose.txt", c2w)
+        if rendered_depth and seq in train_seqs:
+            tiff.write(os.path.join(rd, f"seq{seq:02d}_frame-{i:06d}.pose.depth.tiff"),
+                       _mm(depth))
+    _each(write, jobs)
+    for name, seqs in (("TrainSplit.txt", train_seqs), ("TestSplit.txt", test_seqs)):
+        with open(os.path.join(sd, name), "w") as f:
+            f.write("".join(f"sequence{s}\n" for s in seqs))
+
+
+def _write_mesh_ply(path: str, xyz: np.ndarray, rgb: np.ndarray, faces: np.ndarray) -> None:
+    """A binary PLY mesh: vertices (float xyz, uchar rgb) then triangles."""
+    n, m = len(xyz), len(faces)
+    head = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+            "property float x", "property float y", "property float z",
+            "property uchar red", "property uchar green", "property uchar blue",
+            f"element face {m}", "property list uchar int vertex_indices", "end_header"]
+    vert = np.zeros(n, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    vert["xyz"] = xyz
+    vert["rgb"] = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+    face = np.zeros(m, dtype=[("n", "u1"), ("idx", "<i4", 3)])
+    face["n"] = 3
+    face["idx"] = faces
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode("ascii"))
+        f.write(vert.tobytes())
+        f.write(face.tobytes())
+
+
+# 12-Scenes' colour intrinsics (its info.txt), at 1296x968
+TWELVE_FX, TWELVE_FY, TWELVE_CX, TWELVE_CY = 1169.62, 1167.11, 646.295, 489.927
+
+
+def write_twelve_scenes_raw(root: str, place: str = "apt1", scene: str = "kitchen",
+                            n_train: int = 12, n_test: int = 4, H: int = 968, W: int = 1296,
+                            depth_hw=(480, 640), inf_frames=(1,), tex: int = 2,
+                            box_half: float = 2.0, quality: int = 90) -> None:
+    """A scene in 12-Scenes' raw layout under root/place/scene:
+    data/frame-XXXXXX.{color.jpg,depth.png,pose.txt} (the test frames
+    first; JPEG colour at H x W, 16-bit millimetre depth at depth_hw; the
+    frames in `inf_frames` with INF poses, as the dataset marks lost
+    tracking), info.txt (the dataset's header lines: colour size and
+    intrinsics scaled to W x H), split.txt ('sequence0 [frames=n_test]'
+    first) and a mesh PLY of the room (<place>_<scene>.ply). The colour
+    frames are rendered with the focal length the preprocessor reads (the
+    mean of fx and fy) and the centre as principal point."""
+    sd = os.path.join(root, place, scene)
+    os.makedirs(os.path.join(sd, "data"), exist_ok=True)
+    sx, sy = W / 1296.0, H / 968.0
+    fx, fy, cx, cy = TWELVE_FX * sx, TWELVE_FY * sy, TWELVE_CX * sx, TWELVE_CY * sy
+    f = (fx + fy) / 2.0
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    dh, dw = depth_hw
+    Kd = K.copy()
+    Kd[0] *= dw / W
+    Kd[1] *= dh / H
+    n = n_test + n_train
+    poses, _ = _orbit(n, 0.05, 2 * np.pi / n, 0.3 * box_half / 2.0, box_half, 0.3)
+    def write(job):
+        i, c2w = job
+        stem = os.path.join(sd, "data", f"frame-{i:06d}")
+        rgb, _ = render_box_view(c2w, K, H, W, box_half=box_half, tex=tex)
+        _, depth = render_box_view(c2w, Kd, dh, dw, box_half=box_half, tex=tex)
+        jpeg.write(stem + ".color.jpg", (rgb * 255).astype(np.uint8), quality)
+        png.write(stem + ".depth.png", _mm(depth))
+        if i in inf_frames:
+            with open(stem + ".pose.txt", "w") as fh:
+                fh.write("-INF -INF -INF -INF\n" * 4)
+        else:
+            np.savetxt(stem + ".pose.txt", c2w)
+    _each(write, list(enumerate(poses)))
+    with open(os.path.join(sd, "info.txt"), "w") as fh:
+        fh.write(f"m_versionNumber = 4\nm_sensorName = StructureSensor\n"
+                 f"m_colorWidth = {W}\nm_colorHeight = {H}\n"
+                 f"m_depthWidth = {dw}\nm_depthHeight = {dh}\nm_depthShift = 1000\n"
+                 f"m_calibrationColorIntrinsic = {fx} 0 {cx} 0 0 {fy} {cy} 0 0 0 1 0 0 0 0 1 \n"
+                 f"m_calibrationColorExtrinsic = 1 0 0 0 0 1 0 0 0 0 1 0 0 0 0 1 \n"
+                 f"m_frames.size = {n}\n")
+    with open(os.path.join(sd, "split.txt"), "w") as fh:
+        fh.write(f"sequence0 [frames={n_test}]  [start=0 ; end={n_test - 1}]\n"
+                 f"sequence1 [frames={n_train}]  [start={n_test} ; end={n - 1}]\n")
+    # the mesh: a grid of vertices on each wall, two triangles per cell
+    g = np.linspace(-box_half, box_half, 9)
+    u, v = (a.reshape(-1) for a in np.meshgrid(g, g, indexing="ij"))
+    xyz, faces = [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            p = np.zeros((len(u), 3))
+            p[:, axis] = sign * box_half
+            p[:, (axis + 1) % 3], p[:, (axis + 2) % 3] = u, v
+            base = sum(len(x) for x in xyz)
+            c = (np.arange(8)[:, None] * 9 + np.arange(8)[None, :]).reshape(-1) + base
+            faces += [np.stack([c, c + 9, c + 1], 1), np.stack([c + 1, c + 9, c + 10], 1)]
+            xyz.append(p)
+    xyz = np.concatenate(xyz)
+    _write_mesh_ply(os.path.join(sd, f"{place}_{scene}.ply"), xyz, texture(xyz, tex),
+                   np.concatenate(faces))
+
+
+def write_onepose_raw(root: str, scene: str = "0447-synthetic-box", n_seqs: int = 3,
+                      n_frames: int = 6, H: int = 512, W: int = 512,
+                      obj_half=(0.35, 0.25, 0.3), tex: int = 1, radius: float = 1.6,
+                      n_points: int = 4096, missing_depth=(1,)) -> None:
+    """An object scene in OnePose's raw layout under root/scene:
+    <scene>-k/{color/<i>.png, intrin_ba/<i>.txt (3x3 K), poses_ba/<i>.txt
+    (4x4 world-to-camera), depth/<i>_mvs.tiff (float32 millimetres)} for k
+    = 1..n_seqs (the last sequence is the test split and has no depth; in
+    the others the frames in `missing_depth` have none either),
+    box3d_corners.txt (the object box's 8 corners in OnePose's order) and
+    pc.ply (room and object surface points: write_object_scene's
+    geometry)."""
+    sd = os.path.join(root, scene)
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    corners = _BOX_SIGNS * np.asarray(obj_half)
+    os.makedirs(sd, exist_ok=True)
+    np.savetxt(os.path.join(sd, "box3d_corners.txt"), corners)
+    rng = np.random.default_rng(tex)
+    surface = rng.uniform(-1, 1, (n_points, 3)) * np.asarray(obj_half)
+    face = rng.integers(0, 3, n_points)
+    rows = np.arange(n_points)
+    surface[rows, face] = np.sign(surface[rows, face]) * np.asarray(obj_half)[face]
+
+    def render(c2w, K_, h, w):
+        return render_object_view(c2w, K_, h, w, obj_half, tex=tex)
+
+    jobs = []
+    for k in range(1, n_seqs + 1):
+        seq_dir = os.path.join(sd, f"{scene}-{k}")
+        for sub in ("color", "intrin_ba", "poses_ba", "depth"):
+            os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+        poses, _ = _orbit(n_frames, 0.05 + 2.0 * k, 2 * np.pi / (n_seqs * n_frames),
+                          radius, 0.0, 0.15)
+        jobs += [(k, seq_dir, i, c2w) for i, c2w in enumerate(poses)]
+
+    def write(job):
+        k, seq_dir, i, c2w = job
+        rgb, depth = render(c2w, K, H, W)
+        png.write(os.path.join(seq_dir, "color", f"{i}.png"), (rgb * 255).astype(np.uint8))
+        np.savetxt(os.path.join(seq_dir, "intrin_ba", f"{i}.txt"), K)
+        np.savetxt(os.path.join(seq_dir, "poses_ba", f"{i}.txt"), np.linalg.inv(c2w))
+        if k < n_seqs and i not in missing_depth:
+            tiff.write(os.path.join(seq_dir, "depth", f"{i}_mvs.tiff"),
+                       depth * np.float32(1000), tiff.DEFLATE, predictor=3)
+    _each(write, jobs)
+    views = [c2w for *_, c2w in jobs]
+    room = _backproject(views[::4], K, W, H, render)
+    write_ply_points(os.path.join(sd, "pc.ply"), np.concatenate([room, surface]))
+
+
+def write_colmap_array(path: str, depth: np.ndarray) -> None:
+    """A COLMAP dense array (`W&H&1&` and float32 rows), as patch_match_stereo
+    writes its .geometric.bin depth maps."""
+    h, w = depth.shape
+    with open(path, "wb") as f:
+        f.write(f"{w}&{h}&1&".encode("ascii"))
+        f.write(np.ascontiguousarray(depth, dtype="<f4").tobytes())
+
+
+def write_cambridge_raw(root: str, scene: str = "KingsCollege", n_train: int = 4,
+                        n_test: int = 2, H: int = 1080, W: int = 1920, n_points: int = 2000,
+                        box_half: float = 15.0, tex: int = 3) -> None:
+    """A scene in Cambridge Landmarks' raw layout under root/scene:
+    seq1/frameXXXXX.png (train) and seq2/frameXXXXX.png (test) at H x W,
+    dataset_{train,test}.txt (3 header lines, then 'name X Y Z W P Q R'),
+    reconstruction.nvm (VisualSfM: every camera as 'name.jpg focal qw qx qy
+    qz Cx Cy Cz 0 0', world-to-camera rotation and camera centre, then the
+    sparse points on the room's walls with the views that see them,
+    measurements relative to the image centre), and for the train frames
+    the geometric depth maps patch_match_stereo would write
+    (colmap/dense/stereo/depth_maps/<name>.geometric.bin), so that train
+    metas exist without running MVS. Beside them, two listed test frames
+    the preprocessor skips: one whose PNG is missing, one whose NVM camera
+    has an outlier centre."""
+    sd = os.path.join(root, scene)
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    rng = np.random.default_rng(tex)
+    pts = rng.uniform(-box_half, box_half, (n_points, 3))
+    face = rng.integers(0, 3, n_points)
+    pts[np.arange(n_points), face] = rng.choice([-1.0, 1.0], n_points) * box_half
+    cols = (texture(pts / box_half * 2.0, tex) * 255).astype(np.int64)
+    frames = []
+    poses, _ = _orbit(n_train + n_test + 1, 0.05, 2 * np.pi / (n_train + n_test + 1),
+                      0.2 * box_half, box_half, 0.2)
+    for i, c2w in enumerate(poses):
+        seq = "seq1" if i < n_train else "seq2"
+        frames.append((f"{seq}/frame{i + 1:05d}", c2w))
+    dm = os.path.join(sd, "colmap", "dense", "stereo", "depth_maps", "seq1")
+    for d in (os.path.join(sd, "seq1"), os.path.join(sd, "seq2"), dm):
+        os.makedirs(d, exist_ok=True)
+
+    def write(job):
+        name, c2w = job
+        rgb, depth = render_box_view(c2w, K, H, W, box_half=box_half, tex=tex)
+        png.write(os.path.join(sd, name + ".png"), (rgb * 255).astype(np.uint8))
+        if name.startswith("seq1"):
+            write_colmap_array(os.path.join(dm, name.split("/")[1] + ".png.geometric.bin"),
+                               depth)
+    # the last listed frame's image is missing
+    _each(write, frames[:-1])
+    cams, obs = [], [[] for _ in range(n_points)]
+    n_feat = [0] * len(frames)   # measurements per image so far: the feature index
+    for idx, (name, c2w) in enumerate(frames):
+        w2c = np.linalg.inv(c2w)
+        cams.append((name, w2c, c2w[:3, 3]))
+        if idx == len(frames) - 1:
+            continue
+        pc = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        uv = pc[:, :2] / np.maximum(pc[:, 2:], 1e-8) * f
+        seen = (pc[:, 2] > 0) & (np.abs(uv[:, 0]) < W / 2) & (np.abs(uv[:, 1]) < H / 2)
+        for p in np.nonzero(seen)[0]:
+            obs[p].append((idx, n_feat[idx], uv[p]))
+            n_feat[idx] += 1
+    outlier = np.eye(4)
+    outlier[:3, 3] = [2e4, 0.0, 0.0]
+    cams.append(("seq2/frame09999", np.linalg.inv(outlier), outlier[:3, 3]))
+    lines = ["NVM_V3", "", str(len(cams))]
+    for name, w2c, C in cams:
+        q = rotmat2qvec(w2c[:3, :3])
+        lines.append(f"{name}.jpg {f!r} " + " ".join(repr(float(x)) for x in (*q, *C))
+                     + " 0 0")
+    lines += ["", str(n_points)]
+    for p in range(n_points):
+        o = " ".join(f"{c} {j} {float(x)!r} {float(y)!r}" for c, j, (x, y) in obs[p])
+        lines.append(" ".join(repr(float(x)) for x in pts[p]) + " "
+                     + " ".join(str(int(c)) for c in cols[p]) + f" {len(obs[p])} {o}".rstrip())
+    lines += ["", "0", ""]
+    with open(os.path.join(sd, "reconstruction.nvm"), "w") as fh:
+        fh.write("\n".join(lines))
+    listed = frames + [("seq2/frame09999", outlier)]
+    for split, seq in (("train", "seq1"), ("test", "seq2")):
+        with open(os.path.join(sd, f"dataset_{split}.txt"), "w") as fh:
+            fh.write("Visual Landmark Dataset V1\nImageFile, Camera Position [X Y Z W P Q R]\n\n")
+            for name, c2w in listed:
+                if name.startswith(seq):
+                    q = rotmat2qvec(np.linalg.inv(c2w)[:3, :3])
+                    fh.write(f"{name}.png " + " ".join(repr(float(x)) for x in
+                                                       (*c2w[:3, 3], *q)) + "\n")
+
+
+def write_colmap_workspace(root: str, n_train: int = 6, n_test: int = 2, H: int = 96,
+                           W: int = 128, n_points: int = 300, depth: bool = True,
+                           box_half: float = 2.0, quality: int = 90) -> None:
+    """A COLMAP dense workspace at root: sparse/{cameras,images,points3D}.bin
+    (one PINHOLE camera, the views' poses, points inside the room),
+    images/seq0 (train) and images/seq1 (test) as JPEGs, train.txt and
+    test.txt naming the sequences, and with `depth` each view's
+    stereo/depth_maps/<seq>/<frame>.jpg.geometric.bin."""
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    cameras = {1: Camera(1, "PINHOLE", W, H, np.array([f, f, W / 2, H / 2]))}
+    pts = np.random.default_rng(0).uniform(-0.95 * box_half, 0.95 * box_half, (n_points, 3))
+    points3D = {i: Point3D(i, pts[i], np.array([100, 120, 140]), 0.1, np.zeros(0, np.int64),
+                           np.zeros(0, np.int64)) for i in range(n_points)}
+    images = {}
+    for i in range(n_train + n_test):
+        seq = "seq0" if i < n_train else "seq1"
+        ang = 0.25 * i
+        c2w = look_at_pose(np.array([0.3 * np.cos(ang), 0.05, 0.3 * np.sin(ang)]),
+                           np.array([2 * np.cos(ang), 0, 2 * np.sin(ang)]))
+        rgb, d = render_box_view(c2w, K, H, W, box_half=box_half)
+        name = f"{seq}/frame{i:04d}.jpg"
+        os.makedirs(os.path.join(root, "images", seq), exist_ok=True)
+        jpeg.write(os.path.join(root, "images", name), (rgb * 255).astype(np.uint8), quality)
+        if depth:
+            dm = os.path.join(root, "stereo", "depth_maps", seq)
+            os.makedirs(dm, exist_ok=True)
+            write_colmap_array(os.path.join(root, "stereo", "depth_maps",
+                                            name + ".geometric.bin"), d)
+        w2c = np.linalg.inv(c2w)
+        images[i + 1] = Image(i + 1, rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, name,
+                              np.zeros((0, 2)), np.zeros(0, np.int64))
+    write_model(os.path.join(root, "sparse"), cameras, images, points3D)
+    for split, seq in (("train", "seq0"), ("test", "seq1")):
+        with open(os.path.join(root, f"{split}.txt"), "w") as fh:
+            fh.write(seq + "\n")

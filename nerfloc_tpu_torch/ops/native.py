@@ -12,7 +12,8 @@ accurate libdevice paths.
 
 A host helper `csrc/<name>.cpp` (plain C interface too) is compiled the
 same way with the host's C++ compiler (`$CXX`, else `g++` or `c++`: nvcc's
-own host compiler on a CUDA machine) by `build_host`/`load_host`.
+own host compiler on a CUDA machine) by `build_host`/`load_host`, without
+FMA contraction.
 """
 from __future__ import annotations
 
@@ -31,7 +32,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+# no FMA contraction: each float operation of a host helper is one IEEE
+# single operation (the TSDF host copy is bit-equal to its kernel)
+HOST_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -567,9 +567,8 @@ def test_test_time_color_jitter_equals_jax(scenes):
 
 
 def test_factory_rejects_what_is_not_ported(scenes, tmp_path):
-    for family in ("blender", "llff", "dtu", "colmap"):
-        with pytest.raises(NotImplementedError, match=family):
-            tfactory.build_dataset(tconfigs.Config(dataset_type=family, scenes=("x",)), "test")
+    # the blender, llff, dtu and colmap families are ported: their parity
+    # tests are in tests/test_torch_scene_families.py
     bad = tmp_path / "bad.yaml"
     bad.write_text(open(scenes[1]).read().replace("TRANSFORM:", "transforms:", 1))
     with pytest.raises(ValueError, match="TRANSFORM"):
