@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --parallel-only   # phase 1, then phases 14 and 16
     python3 chip_smoke.py --prep-only       # phase 1, then phase 18
+    python3 chip_smoke.py --options-only    # phase 1, then phase 19
 
 Phases (any failure exits non-zero):
   1. build every hand-written kernel from csrc/ (one nvcc per source:
@@ -188,6 +189,27 @@ Phases (any failure exits non-zero):
      build_dataset at configs/12scenes/apt1_kitchen.yaml,
      onepose/0447.yaml, cambridge/KingsCollege.yaml and (colmap)
      7scenes_all.yaml: every item finite, at its config's shapes.
+ 19. the options that are off by default: (a) on a 32x32, V=3 context
+     (dense S=8, 64 rays, same weights) render_image_rays under each render
+     option (knn_mode 'flat'; 'ray' with the gather and with
+     geo_assembly='onehot'; use_merged_table; table_dtype='int8';
+     prune_views=2) on CUDA against the CPU within PATH_TOL, masks equal;
+     localize_forward with simple_3d_model, with keypoints_3d_source='sfm'
+     (200 seeded points3d) and at 40x40 support views (DepthFusionNet's
+     antialiased resize), CUDA against CPU; (b) at full width (default
+     Config at compute_dtype_of: bf16, V=5 at 240x320, 4096 rays dense-64,
+     one scene context per option) each render option: exactly 1 bf16
+     fused_agg launch per render_rays call, renders finite with rgb in
+     [0, 1] and depth in [0, far], the median ms/call over 5 and peak
+     memory; then against the default option on the same rays, at the JAX
+     tests' bounds: the merged table, the int8 tables and knn_mode 'flat'
+     (rgb max 0.05, mean 0.01; flat's depth within 0.5), prune_views=5
+     against the unpruned render at f32 (2e-4 rel + 2e-5; printed at
+     bf16); (c) at full width, localize_forward and one make_train_step
+     step with simple_3d_model (0 launches each, the pose a rotation) and
+     with keypoints_3d_source='sfm' over 8192 seeded points3d (2 bf16
+     launches per query, 3 per step, every keypoint a valid SfM point),
+     losses finite, the median ms over 5 queries and 5 steps.
 The last lines are a `kernels` JSON object (fused_agg, fused_agg_bf16 and
 tsdf_integrate, the kernel of phase 18, which replaces host code of the
 JAX package rather than a TPU kernel), the card's name and power limit,
@@ -3056,6 +3078,293 @@ def prepare_on_files(dev, card: str, files: str):
     return entry
 
 
+# -- phase 19: the options that are off by default --------------------------
+
+RENDER_OPTIONS = {
+    "flat": dict(knn_mode="flat"),
+    "ray": dict(knn_mode="ray"),
+    "ray_onehot": dict(knn_mode="ray", geo_assembly="onehot"),
+    "merged": dict(use_merged_table=True),
+    "int8": dict(table_dtype="int8"),
+    "prune2": dict(prune_views=2),
+}
+OPT_CALLS = 5               # timed render_rays calls / queries / steps per option
+N_SFM = 8192                # seeded SfM points of the full-width SfM queries
+OPT_HW = (240, 320)         # the full-width query and support size
+RESIZE_HW = 40              # a support side of 8 mod 16: DepthFusionNet's resize
+
+
+def sfm_points(batch, n: int, seed: int):
+    """n points back-projected from seeded query pixels with depth (the
+    scene's SfM points; their last tenth masked out), on batch's device."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    depth, K, c2w = (batch[k].float().cpu() for k in ("depth", "K", "pose"))
+    v, u = torch.nonzero(depth > 0, as_tuple=True)
+    pick = torch.randperm(len(u), generator=g)[:n]
+    u, v = u[pick].float(), v[pick].float()
+    d = depth[v.long(), u.long()]
+    cam = torch.stack([(u - K[0, 2]) / K[0, 0] * d, (v - K[1, 2]) / K[1, 1] * d, d], -1)
+    pts = cam @ c2w[:3, :3].T + c2w[:3, 3]
+    mask = torch.arange(len(pts)) < len(pts) - len(pts) // 10
+    dev = batch["K"].device
+    return pts.to(dev), mask.to(dev)
+
+
+def to_device(obj, dev):
+    """A scene context (dataclasses, NamedTuples and tensors) on dev."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), dev)
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(x, dev) for x in obj))
+    return obj
+
+
+def options_small_vs_cpu(dev):
+    """Phase 19a: each render option's render_rays on a 32x32, V=3 context
+    (dense S=8, 64 rays, same weights) on CUDA against the CPU within
+    PATH_TOL, masks equal: from the same CPU-built context moved to the
+    card (the option's render path alone), and end to end (each device
+    builds its own context) but for table_dtype='int8', whose rounding
+    turns the devices' last-bit feature differences into whole
+    quantization steps (printed); then localize_forward with
+    simple_3d_model, with keypoints_3d_source='sfm' (seeded points3d) and
+    at 40x40 support views (DepthFusionNet's resize), CUDA against CPU."""
+    import dataclasses
+    import torch
+    from nerfloc_tpu_torch.configs import Config, MatchingConfig, RenderConfig
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.solve.pnp import gumbel_noise
+    cpu = torch.device("cpu")
+    nb = device_batch(make_query_batch(n_views=3, H=32, W=32, seed=0))
+    worst = {}
+    for name, opt in RENDER_OPTIONS.items():
+        cfg = Config(backbone2d_fpn_dim=32, model_3d_hidden_dim=32, matcher_hidden_dim=48,
+                     n_views_test=3,
+                     render=RenderConfig(fused_query_agg=True, N_samples=8, **opt),
+                     matching=MatchingConfig(fine_num_3d_keypoints=32,
+                                             coarse_num_3d_keypoints=32))
+        models = {d: NerfPoseEstimator(cfg, device=d, seed=3) for d in (cpu, dev)}
+        batches = {d: to_device_batch(nb, d) for d in (cpu, dev)}
+        rays = seeded_rays(batches[cpu], 64, seed=5)
+        with torch.no_grad():
+            ctx = models[cpu].build_context(batches[cpu])[0]
+            ref = models[cpu].model_3d.render_rays(ctx, *rays, batches[cpu]["pose"])
+            runs = {"same context": models[dev].model_3d.render_rays(
+                to_device(ctx, dev), *(r.to(dev) for r in rays), batches[dev]["pose"])}
+            e2e = models[dev].render_image_rays(batches[dev], *(r.to(dev) for r in rays))
+            runs["end to end"] = e2e
+        for how, out in runs.items():
+            out = {k: v.cpu() for k, v in out.items()}
+            errs = {k: float((ref[k] - out[k]).abs().max())
+                    for k in ("rgb", "depth", "weights", "feat")}
+            gated = how == "same context" or name != "int8"
+            print(f"small render {name} ({how}): cuda vs cpu max_abs_err "
+                  + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+                  + (f" (tol {PATH_TOL})" if gated else " (printed: int8 rounding)"))
+            if gated:
+                worst[f"{name} {how}"] = max(errs.values())
+                if not max(errs.values()) <= PATH_TOL:
+                    fail(f"small render {name} ({how}) differs between CUDA and CPU by "
+                         f"{max(errs.values())}")
+                if not torch.equal(ref["mask"], out["mask"]):
+                    fail(f"small render {name} ({how}) mask differs between CUDA and CPU")
+    for name, kw, hw in (("simple_3d_model", dict(simple_3d_model=True), 32),
+                         ("sfm", dict(keypoints_3d_source="sfm"), 32),
+                         ("resize", {}, RESIZE_HW)):
+        base = tiny_cfg()
+        cfg = dataclasses.replace(base, n_views_test=3, **kw)
+        nbh = device_batch(make_query_batch(n_views=3, H=hw, W=hw, seed=0))
+        outs = []
+        for d in (torch.device("cpu"), dev):
+            m = NerfPoseEstimator(cfg, device=d, seed=3)
+            b = to_device_batch(nbh, d)
+            if name == "sfm":
+                b["points3d"], b["points3d_mask"] = sfm_points(b, 200, seed=9)
+            g = torch.Generator().manual_seed(11)
+            kp = gumbel_noise((m.n_coarse_points(b),), g, "cpu").to(d)
+            pnp = gumbel_noise((cfg.shapes.pnp_hypotheses, 32), g, "cpu").to(d)
+            outs.append({k: v.cpu() for k, v in
+                         m.localize_forward(b, kp_gumbel=kp, pnp_gumbel=pnp).items()})
+        cpu, gpu = outs
+        errs = {k: float((cpu[k].float() - gpu[k].float()).abs().max())
+                for k in ("desc_3d", "score_matrix")}
+        worst[name] = max(errs.values())
+        print(f"small query {name} (support {hw}x{hw}): cuda vs cpu max_abs_err "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()) + f" (tol {PATH_TOL})")
+        if not worst[name] <= PATH_TOL:
+            fail(f"small query {name} differs between CUDA and CPU by {worst[name]}")
+        if not torch.equal(cpu["match_j"], gpu["match_j"]):
+            fail(f"small query {name} match_j differs between CUDA and CPU")
+    return worst
+
+
+def _timed(fn, n: int):
+    """(median ms, min, max) of n calls of fn, each fenced by a sync."""
+    import torch
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def options_full_width(dev, card: str):
+    """Phase 19b-c: every render option and both model options at full
+    width (default Config, compute_dtype_of: bf16, V=5 at 240x320, seeded
+    weights). Returns the numbers for `kernels`."""
+    import dataclasses
+    import torch
+    from nerfloc_tpu_torch.configs import Config, RenderConfig, compute_dtype_of
+    from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
+    from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
+    from nerfloc_tpu_torch.train.state import TrainState
+    from nerfloc_tpu_torch.train.step import make_train_step
+    H, W = OPT_HW
+    host = device_batch(make_query_batch(n_views=5, H=H, W=W, seed=0))
+    batch = to_device_batch(host, dev)
+    far = float(batch["far"])
+    rays = seeded_rays(batch, RENDER_RAYS, seed=0)
+    base = Config(render=RenderConfig(fused_query_agg=True))
+    dt = compute_dtype_of(base)
+    res = {"options_render_launches_per_call": {}, "options_render_ms": {},
+           "options_render_peak_gib": {}}
+    renders = {}
+
+    def render_option(name, opt, dtype, timed: bool):
+        cfg = dataclasses.replace(base, render=dataclasses.replace(base.render, **opt))
+        model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=dtype)
+        nerf = model.model_3d
+        with torch.no_grad():
+            ctx, _ = model.build_context(batch)
+
+            def call():
+                return nerf.render_rays(ctx, *rays, batch["pose"])
+            call()
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            out = call()
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            n = expect_launches(1, bf16, f"render_rays {name} ({dtype})")
+            check_render_out(out, RENDER_RAYS, cfg.render.N_samples, far,
+                             f"render_rays {name} ({dtype})")
+            if timed:
+                torch.cuda.reset_peak_memory_stats()
+                ms, lo, hi = _timed(call, OPT_CALLS)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                print(f"render_rays {name} bf16 V=5 {H}x{W}, {RENDER_RAYS} rays x "
+                      f"{cfg.render.N_samples}: {n} bf16 fused_agg launch per call; median "
+                      f"{ms:.2f} ms/call over {OPT_CALLS} (min {lo:.2f}, max {hi:.2f}); peak "
+                      f"memory {peak:.2f} GiB; {card}")
+                res["options_render_launches_per_call"][name] = n
+                res["options_render_ms"][name] = ms
+                res["options_render_peak_gib"][name] = peak
+        out = {k: v.float().cpu() for k, v in out.items()}
+        del model, nerf, ctx
+        torch.cuda.empty_cache()
+        return out
+
+    renders["proj"] = render_option("proj (default)", {}, dt, timed=True)
+    for name, opt in RENDER_OPTIONS.items():
+        renders[name] = render_option(name, opt, dt, timed=True)
+
+    def rgb_close(a, b, what):
+        err = (renders[a]["rgb"] - renders[b]["rgb"]).abs()
+        print(f"{what}: rgb max {float(err.max()):.4g} (bound 0.05), mean "
+              f"{float(err.mean()):.4g} (bound 0.01); {card}")
+        if not (float(err.max()) < 0.05 and float(err.mean()) < 0.01):
+            fail(f"{what}: rgb differs beyond the JAX tests' bounds")
+        return float(err.max())
+    res["merged_vs_separate_rgb_max"] = rgb_close("merged", "proj",
+                                                  "merged table vs separate tables")
+    res["int8_vs_bf16_rgb_max"] = rgb_close("int8", "proj", "int8 tables vs bf16 tables")
+    res["flat_vs_proj_rgb_max"] = rgb_close("flat", "proj", "knn_mode flat vs proj")
+    d_err = float((renders["flat"]["depth"] - renders["proj"]["depth"]).abs().max())
+    print(f"knn_mode flat vs proj: depth max {d_err:.4g} (bound 0.5); {card}")
+    if not d_err <= 0.5:
+        fail(f"knn_mode flat vs proj: depth differs by {d_err}")
+    # prune_views = V reorders the views only; the JAX tests' bound is an
+    # f32 one (2e-4 rel, 2e-5 abs), so it is held at f32, and at bf16 printed
+    for dtype in (torch.float32, dt):
+        full = render_option("prune5", dict(prune_views=5), dtype, timed=False)
+        ref = renders["proj"] if dtype == dt else render_option("proj", {}, dtype, timed=False)
+        worst = 0.0
+        for k in ("rgb", "depth", "weights"):
+            excess = ((full[k] - ref[k]).abs() - 2e-4 * ref[k].abs()).max()
+            worst = max(worst, float((full[k] - ref[k]).abs().max()))
+            if dtype == torch.float32 and float(excess) > 2e-5:
+                fail(f"prune_views=5 at f32: {k} differs from the unpruned render")
+            if dtype == torch.float32 and not torch.equal(full["mask"], ref["mask"]):
+                fail("prune_views=5 at f32: mask differs from the unpruned render")
+        print(f"prune_views=5 vs unpruned ({str(dtype).split('.')[-1]}): max abs diff "
+              f"{worst:.3g}{' (bound 2e-4 rel + 2e-5)' if dtype == torch.float32 else ''}; "
+              f"{card}")
+        res[f"prune5_vs_unpruned_max_{str(dtype).split('.')[-1]}"] = worst
+
+    # 19c: the model options, localize_forward and one train step each
+    points3d, points3d_mask = sfm_points(batch, N_SFM, seed=9)
+    for name, kw, launches in (("simple_3d_model", dict(simple_3d_model=True), (0, 0)),
+                               ("sfm", dict(keypoints_3d_source="sfm"), (2, 3))):
+        cfg = dataclasses.replace(base, **kw)
+        model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=dt)
+        b = dict(batch)
+        if name == "sfm":
+            b["points3d"], b["points3d_mask"] = points3d, points3d_mask
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model.localize_forward(b, generator=gen)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        out = model.localize_forward(b, generator=gen)
+        torch.cuda.synchronize()
+        n_q = expect_launches(launches[0], True, f"localize_forward {name}")
+        check_pose(out["pose"], f"localize_forward {name}")
+        if name == "sfm":
+            ok = (out["mkps3d"][:, None, :] == points3d[points3d_mask][None]).all(-1).any(-1)
+            if not bool(ok.all()):
+                fail("localize_forward sfm: a keypoint is not a valid SfM point")
+        q_ms, q_lo, q_hi = _timed(lambda: model.localize_forward(b, generator=gen), OPT_CALLS)
+        stacked = to_device_batch(stack_batches([host]), dev)
+        if name == "sfm":
+            stacked["points3d"], stacked["points3d_mask"] = points3d[None], points3d_mask[None]
+        state = TrainState(model, cfg)
+        step = make_train_step(model, cfg)
+        losses, t_ms = [], []
+        for i in range(1 + OPT_CALLS):
+            kp, idx = (v.to(dev) for v in train_noise(model, stacked, seed=i))
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            metrics = step(state, stacked, kp_gumbel=kp, ray_idx=idx)
+            torch.cuda.synchronize()
+            t_ms.append((time.perf_counter() - t0) * 1e3)
+            n_t = expect_launches(launches[1], True, f"train step {name} {i}")
+            losses.append(float(metrics["loss"]))
+            if not math.isfinite(losses[-1]):
+                fail(f"train step {name} {i}: loss {losses[-1]} not finite")
+        s_ms = statistics.median(t_ms[1:])
+        print(f"{name} bf16 V=5 {H}x{W}: localize_forward {n_q} bf16 fused_agg launches, "
+              f"median {q_ms:.2f} ms/query over {OPT_CALLS} (min {q_lo:.2f}, max {q_hi:.2f}), "
+              f"matches {int(out['match_mask'].sum())}; train step {n_t} launches, median "
+              f"{s_ms:.2f} ms/step over {OPT_CALLS} after 1 warm-up, losses "
+              + " ".join(f"{x:.5g}" for x in losses) + f"; {card}")
+        res[f"{name}_launches_per_query"] = n_q
+        res[f"{name}_train_launches_per_step"] = n_t
+        res[f"{name}_ms_per_query"] = q_ms
+        res[f"{name}_ms_per_step"] = s_ms
+        del model, state, step, out
+        torch.cuda.empty_cache()
+    return res
+
+
 def _check_item(item, hw, V: int, what: str):
     """A dataset item at its config's shapes, its float arrays finite."""
     import numpy as np
@@ -3250,6 +3559,11 @@ def main() -> int:
             prep = prepare_on_files(dev, card, files)
         print(json.dumps({"kernels": [prep]}))
         return 0
+    if sys.argv[1:2] == ["--options-only"]:
+        # phase 19 alone: the options that are off by default
+        options_small_vs_cpu(dev)
+        print(json.dumps(options_full_width(dev, card)))
+        return 0
     if sys.argv[1:2] == ["--parallel-only"]:
         # phases 14 and 16 alone: a quicker check of the parallel path
         with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as files:
@@ -3321,6 +3635,8 @@ def main() -> int:
             dev, card, [(cli["cli_root"], s) for s in CLI_SCENES] +
             [(ft["ft_root"], s) for s in (*FT_OBJECTS, FT_JPEG_SCENE)])
         prep = prepare_on_files(dev, card, files)
+    options_err = options_small_vs_cpu(dev)
+    options = options_full_width(dev, card)
     print(f"train step, full width: f32 {train['train_ms_per_step']:.2f} ms/step (peak "
           f"{train['train_peak_gib']:.2f} GiB), bf16 {train16['train_ms_per_step']:.2f} ms/step "
           f"(peak {train16['train_peak_gib']:.2f} GiB); eval query: f32 "
@@ -3351,7 +3667,13 @@ def main() -> int:
                     par["ddp_train_launches_per_step_per_rank"],
                 "ddp_eval_launches_per_query": par["ddp_eval_launches_per_query"],
                 "prep_train_launches_per_step": prep.pop("prep_train_launches_per_step"),
-                "prep_eval_launches_per_query": prep.pop("prep_eval_launches_per_query")},
+                "prep_eval_launches_per_query": prep.pop("prep_eval_launches_per_query"),
+                **{k: options[k] for k in (
+                    "options_render_launches_per_call", "options_render_ms",
+                    "simple_3d_model_launches_per_query",
+                    "simple_3d_model_train_launches_per_step", "sfm_launches_per_query",
+                    "sfm_train_launches_per_step")},
+                "options_small_cuda_vs_cpu_max_err": options_err},
                prep]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -32,6 +32,9 @@ class RenderConfig:
     prune_views: int = 0
     knn_candidates: int = 128
     geo_assembly: str = "gather"
+    # 'int8' quantizes the feature gather tables (ops/interp.QuantTable):
+    # an inference knob only, since rounding passes no gradient, so a train
+    # step with it gets no render-loss gradient into the feature maps
     table_dtype: str = "bf16"
     # neighbour aggregation in query() through the fused kernel
     # (ops/fused_agg.py) instead of the unfused module chain

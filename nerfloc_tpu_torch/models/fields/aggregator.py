@@ -1,7 +1,9 @@
 """Multi-view feature aggregation with NeuRay visibility weighting
-(counterpart of nerfloc_tpu/models/fields/aggregator.py, unpruned paths),
-the NeuRay alpha weights of the guided render pass, and the support views'
-depth supervision.
+(counterpart of nerfloc_tpu/models/fields/aggregator.py), the NeuRay alpha
+weights of the guided render pass, and the support views' depth
+supervision. The render path samples either the 4-corner tables, the
+merged render table, or (render.prune_views) each sample's most visible
+views only.
 
 `dtype` is the compute dtype (models/lowp.py) of the decoder and the
 output head. Samples of bf16 tables come out bf16 (the packed render
@@ -18,7 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.interp import (bilinear_sample_views, bilinear_sample_views_map_grad, nearest_indices,
-                           packed_bilinear_sample_views)
+                           packed_bilinear_sample_selected, packed_bilinear_sample_views,
+                           sample_render_table)
+from ...ops.knn import topk_first
 from ..lowp import F32, const, dense
 from . import neuray
 from .projector import (Projection, compute_projections, feature_uv_scale,
@@ -142,22 +146,40 @@ class MultiviewFeatureAggregator(nn.Module):
         return a * torch.cumprod(shifted, dim=-1)
 
     def forward(self, sv: SupportViews, featmaps: Tensor, xyz: Tensor,
-                fused_packed: Optional[Tensor] = None,
-                rgb_packed: Optional[Tensor] = None, proj: Optional[Projection] = None):
-        """-> (out [N, out_channels], rgb_feat [N, V, 3+C], vis [N, V, 1]).
+                fused_packed=None, rgb_packed: Optional[Tensor] = None,
+                proj: Optional[Projection] = None, render_table: Optional[Tensor] = None,
+                samples=None, feat_packed=None, vis_packed=None, prune_k: int = 0):
+        """-> (out [N, out_channels], rgb_feat [N, Vk, 3+C], vis [N, Vk, 1],
+        view_sel [N, Vk] or None): Vk = V, or prune_k views when pruning.
 
         fused_packed/rgb_packed: pack_bilinear_corners tables of
-        [featmaps | vis_featmaps] and sv.images (the scene context's);
+        [featmaps | vis_featmaps] (or its QuantTable) and sv.images (the
+        scene context's); render_table: the merged render table, which
+        takes fused_packed's place; samples: (rgb [V, N, 3], fused
+        [V, N, C+32]) already sampled from it by the caller; feat_packed,
+        vis_packed and prune_k > 0: the pruned path (_aggregate_pruned).
         proj: the projection of xyz when the caller already has it (used
-        only where featmaps share the visibility maps' resolution)."""
+        only where featmaps share the visibility maps' resolution; samples
+        and pruning need it)."""
         V, H, W = sv.images.shape[:3]
         C = featmaps.shape[-1]
+        if prune_k and feat_packed is not None and proj is not None:
+            return self._aggregate_pruned(sv, featmaps, proj, feat_packed, rgb_packed,
+                                          vis_packed, prune_k)
         if featmaps.shape[1:3] == sv.vis_featmaps.shape[1:3]:
             if proj is None:
+                if samples is not None:
+                    raise ValueError("samples requires the matching proj")
                 proj = compute_projections(xyz, sv.Ks, sv.poses, H, W)
             h, w = featmaps.shape[1:3]
             uv_f = proj.uv * feature_uv_scale(h, w, H, W, xyz)
-            if fused_packed is not None and rgb_packed is not None:
+            if samples is not None:
+                rgb, fused = samples
+            elif render_table is not None and rgb_packed is not None:
+                fused = sample_render_table(render_table, C + sv.vis_featmaps.shape[-1],
+                                            H, W, h, w, proj.uv)[0]
+                rgb = packed_bilinear_sample_views(rgb_packed, H, W, proj.uv)
+            elif fused_packed is not None and rgb_packed is not None:
                 rgb = packed_bilinear_sample_views(rgb_packed, H, W, proj.uv)
                 fused = packed_bilinear_sample_views(fused_packed, h, w, uv_f)
             else:
@@ -176,7 +198,32 @@ class MultiviewFeatureAggregator(nn.Module):
         vis = vis.transpose(0, 1)[..., None].to(rgb_feat.dtype)
         out = self._fuse(rgb_feat, vis,
                          depth_diff.transpose(0, 1)[..., None].to(rgb_feat.dtype))
-        return out, rgb_feat, vis
+        return out, rgb_feat, vis, None
+
+    def _aggregate_pruned(self, sv: SupportViews, featmaps: Tensor, proj: Projection,
+                          feat_packed, rgb_packed: Tensor, vis_packed, prune_k: int):
+        """render.prune_views: the visibility of every view from the 32-ch
+        vis table, then the feature and rgb rows of each sample's
+        min(prune_k, V) most visible views only (ties to the lower view),
+        fused over those. prune_k >= V gives the unpruned result up to the
+        order of the views."""
+        V, H, W = sv.images.shape[:3]
+        h, w = featmaps.shape[1:3]
+        scale = feature_uv_scale(h, w, H, W, proj.uv)
+        ray_feats = packed_bilinear_sample_views(vis_packed, h, w, proj.uv * scale)
+        valid = _rf_valid(proj, H, W)
+        ray_feats = ray_feats * valid[..., None].to(ray_feats.dtype)
+        vis_all, dd_all = self._decode_visibility(sv, ray_feats, proj.depth, valid)
+        vis_T = vis_all.T.float()                                       # [N, V]
+        sel = topk_first(vis_T, min(prune_k, V))[1]                     # [N, k]
+        uv_sel = torch.gather(proj.uv.transpose(0, 1), 1,
+                              sel[..., None].expand(-1, -1, 2))         # [N, k, 2]
+        feat = packed_bilinear_sample_selected(feat_packed, h, w, uv_sel * scale, sel)
+        rgb = packed_bilinear_sample_selected(rgb_packed, H, W, uv_sel, sel)
+        rgb_feat = torch.cat([rgb, feat], dim=-1)
+        vis = torch.gather(vis_T, 1, sel)[..., None].to(rgb_feat.dtype)
+        depth_diff = torch.gather(dd_all.T.float(), 1, sel)[..., None].to(rgb_feat.dtype)
+        return self._fuse(rgb_feat, vis, depth_diff), rgb_feat, vis, sel
 
     def _fuse(self, rgb_feat: Tensor, vis: Tensor, depth_diff: Tensor) -> Tensor:
         if vis.dtype == F32:

@@ -1,9 +1,10 @@
 """Conditional NeRF (counterpart of
 nerfloc_tpu/models/fields/conditional_nerf.py): `MLP`, `_backproject_level`,
-`build_scene_context` with the default tables, `sample_keypoints`, `query`
-(fused and unfused, with the render branch), `query_coarse`, `query_fine`,
-`sample_depths`, `render_rays` (dense and NeuRay-guided sampling),
-`render_image` and `sample_pdf_det`.
+`build_scene_context` with every table mode, `sample_keypoints`, `query`
+(fused and unfused, with the render branch and the one-hot geometry
+assembly), `query_coarse` (sampled or given points), `query_fine`,
+`sample_depths`, `render_rays` (dense and NeuRay-guided sampling, every
+`knn_mode`), `render_image` and `sample_pdf_det`.
 
 Gathered neighbour rows: the JAX package packs [xyz|dir|conf] as three
 bf16 hi/mid/lo parts (exact to f32) and the features as bf16, because TPU
@@ -23,10 +24,16 @@ port's form of that step on CUDA, whatever `render.fused_query_agg` says.
 On the CPU the flag picks between the reference's two formulations, the
 fused one's plain version and the unfused modules, as in JAX.
 
-Render options that are off by default (`knn_mode` 'ray'/'flat', the merged
-table, view pruning, int8 tables, one-hot geometry assembly) are not
-ported: `build_scene_context` and `render_rays` raise NotImplementedError
-for them.
+The render options (cfg.render): `knn_mode` picks the samples'
+neighbours, by the featmap window around their projections ('proj',
+ops/knn.knn_proj, or the merged table's 5x5 window with
+`use_merged_table`), by per-ray candidates ('ray', ops/knn.knn_rays, whose
+candidates `geo_assembly='onehot'` turns into per-ray tables selected by a
+one-hot product) or by exact KNN over the fine points ('flat');
+`prune_views` keeps each sample's most visible views; `table_dtype='int8'`
+stores the feature tables as int8 (no gradient through the rounding, so
+for inference). Every option ends in the same `query()` tail, the fused
+kernel on the card.
 """
 from __future__ import annotations
 
@@ -41,8 +48,11 @@ from ...geometry.cameras import get_rays, scale_intrinsics, world_to_camera
 from ...geometry.embedder import Embedder
 from ...geometry.math import safe_normalize, safe_sqrt
 from ...ops.fused_agg import extract_agg_params, fused_neighbor_agg
-from ...ops.interp import pack_bilinear_corners, resize_nearest
-from ...ops.knn import knn, knn_gather, knn_proj, pack_xyz_window, topk_first
+from ...ops.interp import (pack_bilinear_corners, pack_render_table,
+                           packed_bilinear_sample_views, quantize_pack_bilinear_corners,
+                           resize_nearest, sample_render_table)
+from ...ops.knn import (knn, knn_from_candidate_planes, knn_gather, knn_proj, knn_rays,
+                        pack_xyz_window, split_bf16x3, topk_first, xyz_window_channels)
 from ..lowp import F32, add_bias, dense, leaky_relu, sigmoid, softmax, softplus
 from ..transformer import MultiHeadAttention
 from .aggregator import MultiviewFeatureAggregator, SupportViews
@@ -60,21 +70,6 @@ def _leaky(y: Tensor) -> Tensor:
 
 _ACT = {"leaky_relu": _leaky, "relu": F.relu, "sigmoid": sigmoid,
         "softplus": softplus, None: lambda y: y}
-
-
-def check_render_options(cfg: Config) -> None:
-    """Raise NotImplementedError for render options the port lacks."""
-    r = cfg.render
-    unported = [name for name, on in (
-        (f"knn_mode={r.knn_mode!r}", r.knn_mode != "proj"),
-        ("use_merged_table", r.use_merged_table),
-        (f"prune_views={r.prune_views}", r.prune_views > 0),
-        ("table_dtype='int8'", r.table_dtype == "int8"),
-        ("geo_assembly='onehot'", r.geo_assembly == "onehot")) if on]
-    if unported:
-        raise NotImplementedError(
-            f"render options not ported: {', '.join(unported)} (the port "
-            "covers knn_mode='proj' with the unmerged bf16/f32 tables)")
 
 
 def _linspace01(n: int, like: Tensor) -> Tensor:
@@ -181,7 +176,6 @@ class ConditionalNeRF(nn.Module):
                             Ks: Tensor, near: Tensor, far: Tensor,
                             feat_coarse_src: Tensor, feat_fine_src: Tensor,
                             stride_coarse: int, stride_fine: int) -> SceneContext:
-        check_render_options(self.cfg)
         vis_featmaps = self.depth_fusion(images, depths, Ks, poses, near, far)
         sv = SupportViews(images=images, depths=depths, poses=poses, Ks=Ks,
                           vis_featmaps=vis_featmaps, near=near, far=far)
@@ -197,29 +191,54 @@ class ConditionalNeRF(nn.Module):
     def assemble_context(self, sv: SupportViews, coarse: NeuralPoints,
                          fine: NeuralPoints, feat_coarse_src: Tensor,
                          feat_fine_src: Tensor) -> SceneContext:
-        """The scene context with its sampling tables: the 4-corner tables
-        of [fine features | ray features] and of the images, the knn_proj
-        window table of the fine points, and (guided sampling only) the
-        4-corner table of the ray features."""
+        """The scene context with its sampling tables, as the render options
+        choose them where the fine featmaps share the visibility maps'
+        resolution: the merged render table (use_merged_table with
+        knn_mode 'proj'), or the feature-only table of the pruned path
+        (prune_views > 0), or the 4-corner table of [fine features | ray
+        features]; int8 (table_dtype) for the feature tables. Always the
+        images' 4-corner table; the knn_proj window table unless the merged
+        table holds the window; the ray features' table for guided sampling
+        and pruning."""
+        r = self.cfg.render
         V = sv.images.shape[0]
         hf, wf = feat_fine_src.shape[1:3]
         dt = self.dtype
-        fused_fine_packed = vis_corner_packed = None
-        if feat_fine_src.shape[1:3] == sv.vis_featmaps.shape[1:3]:
-            fused_fine_packed = pack_bilinear_corners(
-                torch.cat([feat_fine_src.to(dt), sv.vis_featmaps.to(dt)], dim=-1))
-        if self.cfg.render.N_importance > 0:
-            vis_corner_packed = pack_bilinear_corners(sv.vis_featmaps.to(dt))
-        xyz_window_packed = pack_xyz_window(fine.xyz.reshape(V, hf, wf, 3),
-                                            fine.mask.reshape(V, hf, wf),
-                                            win=self.cfg.render.knn_proj_window)
+        int8 = r.table_dtype == "int8"
+        res_match = feat_fine_src.shape[1:3] == sv.vis_featmaps.shape[1:3]
+        use_merged = r.use_merged_table and res_match and r.knn_mode == "proj"
+        use_pruned = r.prune_views > 0 and res_match and not use_merged
+        fused_fine_packed = render_table = xyz_window_packed = None
+        feat_fine_packed = vis_corner_packed = None
+        if use_pruned:
+            feat_only = feat_fine_src.to(dt)
+            feat_fine_packed = quantize_pack_bilinear_corners(feat_only, dt) if int8 \
+                else pack_bilinear_corners(feat_only)
+        elif res_match:
+            fused = torch.cat([feat_fine_src.to(dt), sv.vis_featmaps.to(dt)], dim=-1)
+            if use_merged:
+                render_table = pack_render_table(fused, xyz_window_channels(
+                    fine.xyz.reshape(V, hf, wf, 3), fine.mask.reshape(V, hf, wf)))
+            elif int8:
+                fused_fine_packed = quantize_pack_bilinear_corners(fused, dt)
+            else:
+                fused_fine_packed = pack_bilinear_corners(fused)
+        if not use_merged:
+            xyz_window_packed = pack_xyz_window(fine.xyz.reshape(V, hf, wf, 3),
+                                                fine.mask.reshape(V, hf, wf),
+                                                win=r.knn_proj_window)
+        if r.N_importance > 0 or use_pruned:
+            vis_corner_packed = quantize_pack_bilinear_corners(sv.vis_featmaps, dt) if int8 \
+                else pack_bilinear_corners(sv.vis_featmaps.to(dt))
         return SceneContext(sv=sv, coarse=coarse, fine=fine,
                             feat_coarse_src=feat_coarse_src,
                             feat_fine_src=feat_fine_src,
                             fused_fine_packed=fused_fine_packed,
                             rgb_packed=pack_bilinear_corners(sv.images.to(dt)),
                             xyz_window_packed=xyz_window_packed,
-                            vis_corner_packed=vis_corner_packed)
+                            vis_corner_packed=vis_corner_packed,
+                            render_table=render_table,
+                            feat_fine_packed=feat_fine_packed)
 
     # -- keypoints ----------------------------------------------------------
 
@@ -247,33 +266,70 @@ class ConditionalNeRF(nn.Module):
                 knn_gather(points.confidence, idx),
                 knn_gather(feature, idx).to(points.feature.dtype))
 
+    @staticmethod
+    def assemble_neighbours(points: NeuralPoints, cand_idx: Tensor, local_idx: Tensor):
+        """gather_neighbours of idx = cand_idx gathered at local_idx, from
+        per-ray candidate tables (geo_assembly='onehot'): cand_idx [R, C]
+        rows of [xyz | direction | confidence] as split_bf16x3 parts, the
+        mask and the bf16 features, selected for each of the S*K
+        neighbours of a ray by a one-hot product. The product runs in f32,
+        so each selected value passes through exactly, and the parts are
+        summed as the JAX package sums them. -> (xyz, direction,
+        confidence, feature, mask [N, K]), N = R*S."""
+        R, C = cand_idx.shape
+        S, K = local_idx.shape[1:]
+        g8 = torch.cat([points.xyz, points.direction, points.confidence.float()], dim=-1)
+        hi, mid, lo = split_bf16x3(g8)
+        bf = torch.bfloat16
+        table = torch.cat([hi, mid, lo, points.mask[:, None].to(bf),
+                           points.feature.to(bf)], dim=-1)               # [M, 25+F]
+        cand = table[torch.clamp(cand_idx, 0, table.shape[0] - 1)]      # [R, C, 25+F]
+        oh = local_idx.reshape(R, S * K, 1) == torch.arange(C, device=cand_idx.device)
+        nb = (oh.float() @ cand.float()).reshape(R * S, K, -1)
+        g = nb[..., :8] + nb[..., 8:16] + nb[..., 16:24]
+        return (g[..., :3], g[..., 3:7], g[..., 7:8], nb[..., 25:].to(points.feature.dtype),
+                nb[..., 24] > 0.5)
+
     def query(self, ctx: SceneContext, xyz: Tensor, level: str, K: int,
               direction: Optional[Tensor] = None, knn_idx: Optional[Tensor] = None,
-              proj: Optional[Projection] = None) -> Dict[str, Tensor]:
+              proj: Optional[Projection] = None, cand=None, mv_samples=None
+              ) -> Dict[str, Tensor]:
         """Aggregate a descriptor for [N, 3] points from their K nearest
         neural points and the multiview features.
 
-        Render branch: knn_idx [N, K] are the neighbours (from knn_proj);
-        their distances come from the gathered points, masked ones at
-        finfo.max/4. direction [N, >=3] is the query direction (ray
-        direction and depth); without it, the nearest neighbour's. proj is
-        the projection of xyz, shared with the caller."""
+        Render branch: knn_idx [N, K] are the neighbours (from knn_proj,
+        the merged table's window or knn_rays); without it, the exact KNN
+        among the level's points. Their distances come from the gathered
+        points, masked ones at finfo.max/4. cand: (cand_idx [R, C],
+        local_idx [R, S, K]) of knn_rays, R*S == N, for the one-hot
+        assembly. direction [N, >=3] is the query direction (ray direction
+        and depth); without it, the nearest neighbour's. proj is the
+        projection of xyz, shared with the caller; mv_samples (rgb, fused)
+        the merged table's samples at it. The output's view_sel [N, k] is
+        each sample's views under render.prune_views (None otherwise)."""
         points = ctx.coarse if level == "coarse" else ctx.fine
         featmaps = ctx.feat_coarse_src if level == "coarse" else ctx.feat_fine_src
         fine = level == "fine"
-        mv_agg, mv_feat, mv_vis = self.multiview_aggregator(
-            ctx.sv, featmaps, xyz,
+        mv_agg, mv_feat, mv_vis, view_sel = self.multiview_aggregator(
+            ctx.sv, featmaps, xyz, proj=proj,
             fused_packed=ctx.fused_fine_packed if fine else None,
-            rgb_packed=ctx.rgb_packed if fine else None, proj=proj)
+            rgb_packed=ctx.rgb_packed if fine else None,
+            render_table=ctx.render_table if fine else None, samples=mv_samples,
+            feat_packed=ctx.feat_fine_packed if fine else None,
+            vis_packed=ctx.vis_corner_packed if fine else None,
+            prune_k=self.cfg.render.prune_views if fine else 0)
 
         idx = knn_idx
-        if idx is None:
-            d2, idx = knn(xyz, points.xyz, K=K, points_mask=points.mask)
-        nb_xyz, nb_dir, nb_conf, nb_feat = self.gather_neighbours(points, idx)
-        if knn_idx is not None:
+        if cand is not None:
+            nb_xyz, nb_dir, nb_conf, nb_feat, nb_mask = self.assemble_neighbours(points, *cand)
+        else:
+            if idx is None:
+                d2, idx = knn(xyz, points.xyz, K=K, points_mask=points.mask)
+            nb_xyz, nb_dir, nb_conf, nb_feat = self.gather_neighbours(points, idx)
+            nb_mask = knn_gather(points.mask, idx) if knn_idx is not None else None
+        if nb_mask is not None:
             d = xyz[:, None, :] - nb_xyz
-            d2 = torch.where(knn_gather(points.mask, idx), torch.sum(d * d, dim=-1),
-                             torch.finfo(d.dtype).max / 4)
+            d2 = torch.where(nb_mask, torch.sum(d * d, dim=-1), torch.finfo(d.dtype).max / 4)
         dists = safe_sqrt(d2)
         if direction is None:
             direction = nb_dir[:, 0, :]
@@ -282,8 +338,8 @@ class ConditionalNeRF(nn.Module):
         if self.cfg.render.fused_query_agg or xyz.is_cuda:
             params = extract_agg_params(self, nb_feat.shape[-1])
             feature_agg = fused_neighbor_agg(xyz, direction.contiguous(), mv_agg,
-                                             nb_xyz, nb_dir, nb_feat, scale,
-                                             params, self.freqs)
+                                             nb_xyz.contiguous(), nb_dir.contiguous(),
+                                             nb_feat.contiguous(), scale, params, self.freqs)
         else:
             dt = self.dtype
             ray_diff = safe_normalize(direction[:, None, :3] - nb_dir[..., :3])
@@ -305,16 +361,24 @@ class ConditionalNeRF(nn.Module):
             "weights": weights,
             "multiview_feature": mv_feat,
             "multiview_visibility": mv_vis,
+            "view_sel": view_sel,
         }
 
-    def query_coarse(self, ctx: SceneContext, gumbel: Tensor
-                     ) -> Tuple[Tensor, Tensor, Tensor]:
-        """-> (desc [N, hidden], pts3d, pts3d_ndc) for Gumbel-sampled points."""
-        pts3d, pts3d_ndc, sample_idx = self.sample_keypoints(
-            ctx, self.cfg.matching.fine_num_3d_keypoints, gumbel)
+    def query_coarse(self, ctx: SceneContext, gumbel: Optional[Tensor] = None,
+                     points: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+        """-> (desc [N, hidden], pts3d, pts3d_ndc) for Gumbel-sampled coarse
+        points (gumbel [P_coarse]), or for given points [N, 3] (the SfM
+        keypoints), whose 2D feature is their nearest coarse point's."""
+        if points is None:
+            pts3d, pts3d_ndc, sample_idx = self.sample_keypoints(
+                ctx, self.cfg.matching.fine_num_3d_keypoints, gumbel)
+            feature_2d = ctx.coarse.feature[sample_idx]
+        else:
+            pts3d, pts3d_ndc = points, world_to_camera(ctx.sv.poses[0], points)
+            _, idx = knn(points, ctx.coarse.xyz, K=1, points_mask=ctx.coarse.mask)
+            feature_2d = knn_gather(ctx.coarse.feature, idx)[:, 0]
         qd = self.query(ctx, pts3d, level="coarse", K=8)
-        desc = dense(self.proj_layer_3d_coarse,
-                     torch.cat([qd["feature_agg"], ctx.coarse.feature[sample_idx]], dim=1),
+        desc = dense(self.proj_layer_3d_coarse, torch.cat([qd["feature_agg"], feature_2d], dim=1),
                      self.dtype)
         if self.cfg.use_scene_coord_memorization:
             desc = desc + self.coord_desc_mlp_coarse(self.xyz_embed(pts3d))
@@ -362,28 +426,59 @@ class ConditionalNeRF(nn.Module):
         z_vals = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1)[0]
         return z_vals, torch.sum(w_c * z_c, dim=-1)
 
-    def render_knn(self, ctx: SceneContext, xyz: Tensor, proj: Projection) -> Tensor:
-        """8 neighbours [N, 8] of each sample among the fine points by
-        knn_proj: the window sits at the projection in featmap pixels
-        (image uv / stride)."""
-        H = ctx.sv.images.shape[1]
+    def render_neighbours(self, ctx: SceneContext, rays_o: Tensor, rays_d: Tensor,
+                          z_vals: Tensor, xyz: Tensor, proj: Projection):
+        """(knn_idx [N, 8] or None, cand or None, mv_samples or None) of the
+        R*S samples xyz [N, 3] by render.knn_mode: 'proj' windows around
+        the projection in featmap pixels (image uv / stride) of the
+        knn_proj table, or with the merged table its 5x5 window, whose
+        fused samples the aggregator then reuses; 'ray' knn_rays (bf16
+        selection) with its candidates for the one-hot assembly; 'flat'
+        none, so query() runs the exact KNN."""
+        r = self.cfg.render
+        Hs, Ws = ctx.sv.images.shape[1:3]
         hf, wf = ctx.feat_fine_src.shape[1:3]
-        return knn_proj(xyz, proj.uv / float(H // hf), proj.in_front,
-                        ctx.xyz_window_packed, hf, wf, K=8,
-                        win=self.cfg.render.knn_proj_window)
+        if r.knn_mode == "proj":
+            if ctx.render_table is None:
+                return knn_proj(xyz, proj.uv / float(Hs // hf), proj.in_front,
+                                ctx.xyz_window_packed, hf, wf, K=8,
+                                win=r.knn_proj_window), None, None
+            Cf = ctx.feat_fine_src.shape[-1] + ctx.sv.vis_featmaps.shape[-1]
+            fused_s, cx, cy, cz, valid, cidx = sample_render_table(
+                ctx.render_table, Cf, Hs, Ws, hf, wf, proj.uv)
+            idx = knn_from_candidate_planes(xyz, cx, cy, cz, valid & proj.in_front[:, :, None],
+                                            cidx, 8)
+            rgb_s = packed_bilinear_sample_views(ctx.rgb_packed, Hs, Ws, proj.uv)
+            return idx, None, (rgb_s, fused_s)
+        if r.knn_mode == "ray":
+            onehot = r.geo_assembly == "onehot"
+            out = knn_rays(rays_o, rays_d, z_vals, ctx.fine.xyz, K=8,
+                           points_mask=ctx.fine.mask, n_candidates=r.knn_candidates,
+                           selection_dtype=torch.bfloat16, return_candidates=onehot)
+            if onehot:
+                idx, cand_idx, local_idx = out
+                return idx.reshape(-1, 8), (cand_idx, local_idx), None
+            return out.reshape(-1, 8), None, None
+        if r.knn_mode == "flat":
+            return None, None, None
+        raise ValueError(f"render.knn_mode {r.knn_mode!r}: 'proj', 'ray' or 'flat'")
 
     def blend_views(self, ctx: SceneContext, xyz: Tensor, pose: Tensor,
-                    feature_agg: Tensor, mv_feat: Tensor, mv_vis: Tensor) -> Tensor:
+                    feature_agg: Tensor, mv_feat: Tensor, mv_vis: Tensor,
+                    view_sel: Optional[Tensor] = None) -> Tensor:
         """Colour [N, 3] of each sample: a softmax over views of the
         blending MLP's weights on the views' rgb; views that do not see the
         sample are left out. The MLP's first layer runs as partial products
         over its row blocks, so feature_agg enters once per sample and the
-        [N, V, W+3+C+5] input is never built."""
+        [N, V, W+3+C+5] input is never built. view_sel [N, k]: the views of
+        mv_feat's axis under render.prune_views."""
         fc = self.rgb_blending_mlp
         dt = self.dtype
         W, Cf = feature_agg.shape[-1], mv_feat.shape[-1]
         k_fa, k_mv, k_vis, k_rd = fc.fc0.weight.to(dt).split([W, Cf, 1, 4], dim=1)
         ray_diff = compute_angle(xyz, pose, ctx.sv.poses).transpose(0, 1)  # [N, V, 4]
+        if view_sel is not None:
+            ray_diff = torch.gather(ray_diff, 1, view_sel[..., None].expand(-1, -1, 4))
         if dt == F32:
             h = F.linear(feature_agg, k_fa, fc.fc0.bias)[:, None, :]
             h = h + mv_feat @ k_mv.T + mv_vis * k_vis[:, 0] + ray_diff @ k_rd.T
@@ -423,15 +518,15 @@ class ConditionalNeRF(nn.Module):
         """Volume-render rays [R, 3] against the scene context; pose is the
         query camera's c2w (for the blending angles).
 
-        One projection of all R*S samples serves knn_proj, the multiview
-        aggregation and the validity mask; the neighbour aggregation is one
-        fused_agg launch at N = R*S, K = 8 on the card.
+        One projection of all R*S samples serves the neighbour search
+        (render_neighbours), the multiview aggregation and the validity
+        mask; the neighbour aggregation is one fused_agg launch at
+        N = R*S, K = 8 on the card, whatever the render options.
         Returns rgb [R,3], depth [R], weights [R,S], mask [R] (more than
         min(8, S//2) samples seen by two or more views), depth_uncertainty
         [R], depth_coarse [R] (guided), beta [R] (train) and feat [R,C]
         (render.render_feature)."""
         cfg = self.cfg
-        check_render_options(cfg)
         R = rays_o.shape[0]
         z_vals, depth_coarse = self.ray_depths(ctx, rays_o, rays_d)
         S = z_vals.shape[1]
@@ -440,8 +535,10 @@ class ConditionalNeRF(nn.Module):
                                z_vals.reshape(-1, 1)], dim=-1)
         H, W = ctx.sv.images.shape[1:3]
         proj = compute_projections(xyz, ctx.sv.Ks, ctx.sv.poses, H, W)
-        qd = self.query(ctx, xyz, level="fine", K=8, direction=direction,
-                        knn_idx=self.render_knn(ctx, xyz, proj), proj=proj)
+        knn_idx, cand, mv_samples = self.render_neighbours(ctx, rays_o, rays_d, z_vals,
+                                                           xyz, proj)
+        qd = self.query(ctx, xyz, level="fine", K=8, direction=direction, knn_idx=knn_idx,
+                        proj=proj, cand=cand, mv_samples=mv_samples)
         feature_agg = qd["feature_agg"]
 
         geo = self.ray_unet(feature_agg.reshape(R, S, -1)).reshape(R * S, -1)
@@ -449,7 +546,7 @@ class ConditionalNeRF(nn.Module):
         sig = self.sigma_mlp
         sigma = softplus(dense(sig.fc0, geo, sig.dtype), f32_out=True).reshape(R, S)
         rgb = self.blend_views(ctx, xyz, pose, feature_agg, qd["multiview_feature"],
-                               qd["multiview_visibility"]).reshape(R, S, 3)
+                               qd["multiview_visibility"], qd["view_sel"]).reshape(R, S, 3)
         out = self.composite(z_vals, sigma, rgb)
         seen = (proj.in_front & proj.inbound).T.reshape(R, S, -1).sum(dim=2) > 1
         out["mask"] = seen.sum(dim=1) > min(8, S // 2)

@@ -4,7 +4,7 @@ nerfloc_tpu/models/fields/context.py): built once per localization query
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -35,7 +35,17 @@ class SceneContext:
     fine: NeuralPoints
     feat_coarse_src: Tensor               # [V, Hc, Wc, C]
     feat_fine_src: Tensor                 # [V, Hf, Wf, C]
-    fused_fine_packed: Optional[Tensor] = None  # [V*Hf*Wf, 4*(C+32)]
+    # 4-corner tables (ops/interp.pack_bilinear_corners); with
+    # render.table_dtype='int8' the feature tables are QuantTables
+    fused_fine_packed: Optional[Any] = None     # [V*Hf*Wf, 4*(C+32)]
     rgb_packed: Optional[Tensor] = None         # [V*H*W, 12]
     xyz_window_packed: Optional[Tensor] = None  # [V*Hf*Wf, win^2*4] knn_proj table
-    vis_corner_packed: Optional[Tensor] = None  # [V*Hf*Wf, 4*32], guided sampling only
+    # vis-only corners: guided sampling and the pruned path's visibility
+    vis_corner_packed: Optional[Any] = None     # [V*Hf*Wf, 4*32]
+    # merged render table (render.use_merged_table): fused corners and the
+    # 5x5 candidate window in one row; replaces fused_fine_packed and
+    # xyz_window_packed
+    render_table: Optional[Tensor] = None       # [V*(Hf+4)*(Wf+4), 4*(C+32)+250]
+    # feature-only corners of the pruned path (render.prune_views > 0);
+    # replaces fused_fine_packed
+    feat_fine_packed: Optional[Any] = None      # [V*Hf*Wf, 4*C]

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...geometry.cameras import backproject_depth, camera_project, world_to_camera
-from ...ops.interp import bilinear_sample
+from ...ops.interp import bilinear_sample, resize_bilinear_aa
 from ..lowp import F32, conv, dense, normalize, sigmoid, softplus
 
 Tensor = torch.Tensor
@@ -193,11 +193,10 @@ class DepthFusionNet(nn.Module):
         ds = conv(self.depth_skip2, F.relu(conv(self.depth_skip1, d_norm.permute(0, 3, 1, 2), dt)),
                   dt)
         if ds.shape[-2:] != feats.shape[-2:]:
-            # the reference resizes with antialiasing here; neither the
-            # localization shapes (240x320) nor the test shapes reach it
-            raise NotImplementedError(
-                f"depth-skip {tuple(ds.shape[-2:])} != encoder "
-                f"{tuple(feats.shape[-2:])}: antialiased resize not ported")
+            # sizes that halve to odd numbers leave the two branches a pixel
+            # apart: the depth skip is resized to the encoder's size as
+            # jax.image.resize(method='bilinear') resizes, antialiased
+            ds = resize_bilinear_aa(ds.permute(0, 2, 3, 1), *feats.shape[-2:]).permute(0, 3, 1, 2)
         out = conv(self.conv_out, torch.cat([ds, feats], dim=1), dt)
         return out.permute(0, 2, 3, 1).contiguous()
 

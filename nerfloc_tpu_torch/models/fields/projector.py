@@ -6,7 +6,6 @@ from typing import NamedTuple
 
 import torch
 
-from ...geometry.cameras import camera_project
 from ...geometry.math import safe_normalize
 from ...ops.interp import bilinear_sample_views
 
@@ -20,11 +19,36 @@ class Projection(NamedTuple):
     inbound: Tensor   # [V, N] bool, inside [0, W-1] x [0, H-1]
 
 
+def _rows_times(x: Tensor, M: Tensor, fused_last: bool = False) -> Tensor:
+    """x [..., 3] @ M [..., 3, 3] as XLA's CPU backend computes the small
+    products of the JAX package's projection: each output column summed
+    over k = 0, 1, 2 with every product and sum rounded to f32, except
+    that with fused_last the third column's steps are fused (each product
+    added exactly and the sum rounded once). Bit for bit, points on a
+    view's own pixel grid then project to its border as in JAX (inbound is
+    a hard test there)."""
+    cols = [(x[..., 0] * M[..., 0, j] + x[..., 1] * M[..., 1, j]) + x[..., 2] * M[..., 2, j]
+            for j in range(3)]
+    if fused_last:
+        x64, M64 = x.double(), M.double()
+        acc = (x64[..., 0] * M64[..., 0, 2]).to(x.dtype)
+        for k in (1, 2):
+            acc = (x64[..., k] * M64[..., k, 2] + acc.double()).to(x.dtype)
+        cols[2] = acc
+    return torch.stack(cols, dim=-1)
+
+
 def compute_projections(xyz: Tensor, Ks: Tensor, c2ws: Tensor, H: int,
                         W: int) -> Projection:
     """Project [N, 3] world points into V cameras (batched over views)."""
-    pts_cam = (xyz[None] - c2ws[:, None, :3, 3]) @ c2ws[:, :3, :3]   # [V, N, 3]
-    u, v, z = camera_project(pts_cam, Ks)
+    pts_cam = _rows_times(xyz[None] - c2ws[:, None, :3, 3], c2ws[:, None, :3, :3],
+                          fused_last=True)                                   # [V, N, 3]
+    uvz = _rows_times(pts_cam, Ks[:, None].transpose(-1, -2))
+    z = uvz[..., 2]
+    denom = torch.where(torch.abs(z) < 1e-8,
+                        torch.where(z < 0, torch.full_like(z, -1e-8), torch.full_like(z, 1e-8)),
+                        z)
+    u, v = uvz[..., 0] / denom, uvz[..., 1] / denom
     uv = torch.stack([torch.clamp(u, -1e6, 1e6), torch.clamp(v, -1e6, 1e6)], dim=-1)
     inbound = ((uv[..., 0] >= 0) & (uv[..., 0] <= W - 1.0)
                & (uv[..., 1] >= 0) & (uv[..., 1] <= H - 1.0))

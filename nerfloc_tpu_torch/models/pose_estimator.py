@@ -1,6 +1,6 @@
 """Top-level localization model (counterpart of
 nerfloc_tpu/models/pose_estimator.py: `extract_2d`, `build_context`,
-`_keypoints`, `build_3d_2d_pairs`, `match`, `localize_parts`,
+`_keypoints` (as `keypoints`), `build_3d_2d_pairs`, `match`, `localize_parts`,
 `localize_forward`, `train_forward`, `compute_render_loss`,
 `render_image_rays`, `select_visible_mask`, `match_cascade`).
 
@@ -8,8 +8,11 @@ A query runs: backbone on [1+V] images -> appearance FiLM (with
 cfg.encode_appearance, as the multi-scene configs set it; the per-object
 fine-tunes turn it off) -> scene context
 (NeuRay ray features, neural points, multiview aggregation) -> Gumbel top-k
-keypoints -> coarse 3D descriptors (fused aggregation, K=8) -> coarse and
-fine matching (fused aggregation, K=1) -> P3P-RANSAC. All of it stays on
+keypoints (over the coarse points' scores, or with
+keypoints_3d_source='sfm' over the batch's SfM points) -> coarse 3D
+descriptors (fused aggregation, K=8) -> coarse and fine matching (fused
+aggregation, K=1) -> P3P-RANSAC. cfg.simple_3d_model swaps the conditional
+NeRF for its projection-average ablation (no fused aggregation). All of it stays on
 the model's device; nothing is read back to the host. With
 cfg.cascade_matching a second matcher re-matches the keypoints that a first
 pose estimate sees (`match_cascade`); train/step.py's eval step decides
@@ -42,10 +45,12 @@ from ..device import DeviceLike, resolve_device
 from ..geometry.cameras import camera_project, rays_for_pixels, world_to_camera
 from ..geometry.embedder import Embedder, position_embedding_sine
 from ..ops.interp import bilinear_sample
+from ..ops.knn import topk_first
 from ..solve.pnp import gumbel_noise, ransac_pnp
 from .appearance import AppearanceAdaptLayer, appearance_embedding
 from .backbone import Backbone2D
 from .fields.conditional_nerf import ConditionalNeRF
+from .fields.conditional_nerf_simple import ConditionalNeRFSimple
 from .fields.context import SceneContext
 from .fields.losses import img2mse, mse2psnr, rendering_loss
 from .lowp import F32, const, dense, sigmoid
@@ -119,10 +124,6 @@ class NerfPoseEstimator(nn.Module):
         super().__init__()
         if dtype not in (F32, torch.bfloat16):
             raise ValueError(f"compute dtype {dtype}: the port runs float32 or bfloat16")
-        if cfg.simple_3d_model or cfg.keypoints_3d_source != "depth":
-            raise NotImplementedError(
-                "simple_3d_model and keypoints_3d_source='sfm' are not ported (the port "
-                "runs the conditional NeRF on depth keypoints)")
         self.cfg = cfg
         self.dtype = dtype
         hd, C = cfg.matcher_hidden_dim, cfg.backbone2d_fpn_dim
@@ -141,7 +142,9 @@ class NerfPoseEstimator(nn.Module):
             self.fine_preprocess2 = FinePreprocess(C, hd, dtype)
             self.fine_transformer2 = SelfCrossTransformer(hd, 8, 128, dtype)
             self.fine_matcher2 = FineMatching(hd, dtype)
-        self.model_3d = ConditionalNeRF(cfg, dtype)
+        # cfg.simple_3d_model: the projection-average ablation
+        self.model_3d = (ConditionalNeRFSimple if cfg.simple_3d_model else ConditionalNeRF)(
+            cfg, dtype)
         if cfg.encode_appearance:
             self.adapt_appearance_coarse = AppearanceAdaptLayer(C, dtype=dtype)
             self.adapt_appearance_fine = AppearanceAdaptLayer(C, dtype=dtype)
@@ -292,9 +295,28 @@ class NerfPoseEstimator(nn.Module):
         out["fine_err"] = (torch.sum(err * gt_mask) / denom) * (wsz // 2) * sf
         return out
 
+    def sfm_keypoints(self, batch: Mapping[str, Tensor]) -> bool:
+        """Whether the keypoints come from the batch's SfM points
+        (keypoints_3d_source='sfm' and a batch that carries points3d)."""
+        return self.cfg.keypoints_3d_source == "sfm" and "points3d" in batch
+
+    def keypoints(self, ctx: SceneContext, batch: Mapping[str, Tensor], kp_gumbel: Tensor):
+        """(desc_3d, pts3d, pts3d_ndc) of the query's 3D keypoints: Gumbel
+        top-k over the coarse points' keypoint scores, or with SfM
+        keypoints a uniform Gumbel top-k over batch['points3d'] [P, >=3]
+        under batch['points3d_mask'] (kp_gumbel [P], the noise)."""
+        if not self.sfm_keypoints(batch):
+            return self.model_3d.query_coarse(ctx, kp_gumbel)
+        pts_all = batch["points3d"][:, :3]
+        mask = batch.get("points3d_mask")
+        logits = torch.zeros_like(kp_gumbel) if mask is None else torch.where(
+            mask, torch.zeros_like(kp_gumbel), torch.full_like(kp_gumbel, float("-inf")))
+        _, idx = topk_first(kp_gumbel + logits, self.cfg.matching.fine_num_3d_keypoints)
+        return self.model_3d.query_coarse(ctx, points=pts_all[idx])
+
     def localize_parts(self, batch: Mapping[str, Tensor], kp_gumbel: Tensor):
         ctx, q2d = self.build_context(batch)
-        desc_3d, pts3d, pts3d_ndc = self.model_3d.query_coarse(ctx, kp_gumbel)
+        desc_3d, pts3d, pts3d_ndc = self.keypoints(ctx, batch, kp_gumbel)
         m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc)
         return ctx, q2d, desc_3d, pts3d, pts3d_ndc, m
 
@@ -309,6 +331,10 @@ class NerfPoseEstimator(nn.Module):
                           second=True)
 
     def n_coarse_points(self, batch: Mapping[str, Tensor]) -> int:
+        """The length of the keypoint draw's Gumbel noise: the coarse
+        points, or with SfM keypoints the batch's points3d."""
+        if self.sfm_keypoints(batch):
+            return batch["points3d"].shape[0]
         V, H, W = batch["topk_images"].shape[:3]
         s = Backbone2D.layer_to_stride[self.cfg.backbone2d_coarse_layer_name]
         return V * (H // s) * (W // s)
@@ -320,7 +346,7 @@ class NerfPoseEstimator(nn.Module):
                          pnp_gumbel: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """Eval path: features -> 3D descriptors -> matching -> PnP-RANSAC.
 
-        kp_gumbel [P_coarse] and pnp_gumbel [n_hyps, n_keypoints]: Gumbel
+        kp_gumbel [n_coarse_points(batch)] and pnp_gumbel [n_hyps, n_keypoints]: Gumbel
         noise of the keypoint draw and of the RANSAC minimal sets; drawn
         from `generator` (on the model's device) when not given."""
         dev = self.device
@@ -343,7 +369,7 @@ class NerfPoseEstimator(nn.Module):
                       generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         """One training query -> its losses and what the metrics need.
 
-        kp_gumbel [P_coarse]: Gumbel noise of the keypoint draw; ray_idx
+        kp_gumbel [n_coarse_points(batch)]: Gumbel noise of the keypoint draw; ray_idx
         [N_rand]: distinct flat pixel indices (y * W + x) of the rendered
         rays; each is drawn from `generator` (on the model's device) when not
         given. Returns loss (the weighted sum), its terms coarse_loss,
@@ -363,7 +389,7 @@ class NerfPoseEstimator(nn.Module):
         out: Dict[str, Tensor] = {}
         loss = torch.zeros((), device=dev)
         if cfg.train_pose:
-            desc_3d, pts3d, pts3d_ndc = self.model_3d.query_coarse(ctx, kp_gumbel)
+            desc_3d, pts3d, pts3d_ndc = self.keypoints(ctx, batch, kp_gumbel)
             pairs = self.build_3d_2d_pairs(pts3d, batch["depth"], batch["K"], batch["pose"],
                                            H, W, q2d["stride_coarse"],
                                            cfg.matching.coarse_matching_depth_thresh)

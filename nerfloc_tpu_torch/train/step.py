@@ -21,6 +21,7 @@ against the ground-truth pairs.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -71,6 +72,11 @@ def make_train_step(model, cfg: Config, group: Optional[dist.ProcessGroup] = Non
     are 0-d tensors on the model's device: the means over the (global)
     batch of loss and of its terms, fine_err, psnr and matching_iou, and
     grad_norm, the global norm of the (all-reduced) raw gradients."""
+
+    if cfg.render.table_dtype == "int8" and cfg.train_nerf:
+        warnings.warn("render.table_dtype='int8' is for inference: its rounding passes no "
+                      "gradient, so the render loss trains nothing through the feature "
+                      "tables", stacklevel=2)
 
     def train_step(state: TrainState, batch: Mapping[str, Tensor],
                    kp_gumbel: Optional[Tensor] = None, ray_idx: Optional[Tensor] = None,

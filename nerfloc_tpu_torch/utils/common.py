@@ -1,4 +1,5 @@
-"""Small host-side utilities (counterpart of nerfloc_tpu/utils/common.py)."""
+"""Small host-side utilities (counterpart of nerfloc_tpu/utils/common.py):
+`colorize_depth` and `AttrDict`."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,3 +24,17 @@ def colorize_depth(depth: np.ndarray, mask: np.ndarray | None = None,
     rgb = np.stack([r, g, b], axis=-1)
     rgb[~valid] = 0.0
     return rgb.astype(np.float32)
+
+
+class AttrDict(dict):
+    """A dict whose keys read and write as attributes; a missing key raises
+    AttributeError."""
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+    def __setattr__(self, k, v):
+        self[k] = v

@@ -8,6 +8,8 @@ crosses between the frameworks as numpy arrays.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,14 @@ from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device
 from nerfloc_tpu_torch.weights import load_flax_variables
 
 CPU = torch.device("cpu")
+
+# One persistent compilation cache for the suite's processes, under the
+# run's temporary directory: the port's test files compile the same JAX
+# reference graphs (the tiny model's init, its context build), and a
+# process loads what another one compiled. A hit loads the executable the
+# compile produced, so no result changes.
+jax.config.update("jax_compilation_cache_dir",
+                  os.path.join(tempfile.gettempdir(), "nerfloc_parity_jax_cache"))
 
 
 def jax_cfg(**kw):
@@ -71,6 +81,27 @@ class TinySetup:
     def japply(self, fn, *args):
         """Run fn(module, *args) bound to the JAX model's variables."""
         return self.jmodel.apply(self.variables, *args, method=fn)
+
+
+def seeded_variables(jmodel, *init_args, seed: int):
+    """A flax variables tree of jmodel's exact structure (jax.eval_shape of
+    jmodel.init(key, *init_args), so nothing is compiled; a pose
+    estimator's init_args are (batch, key)) with seeded numpy weights in flax's
+    default scheme: kernels ~ N(0, 1/fan_in) clipped at 2 sigma (fan_in =
+    the product of all but the last axis), zero biases, unit scales, and
+    the frozen batch norms the identity."""
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), *init_args)
+    r = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(s.shape[:-1]))
+            w = np.clip(r.standard_normal(s.shape), -2, 2) / 0.87962566103423978
+            return (w * fan_in ** -0.5).astype(np.float32)
+        one = name in ("scale", "weight", "running_var")
+        return (np.ones if one else np.zeros)(s.shape, np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def port_context(model, jctx):

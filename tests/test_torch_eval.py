@@ -179,13 +179,19 @@ def test_cascade_model_loads_every_jax_leaf(S):
 
 
 # encode_appearance=False is ported (tests/test_torch_finetune.py holds it
-# against JAX); these two stay unported
+# against JAX), and so are these two now (tests/test_torch_model_options.py
+# holds them against JAX): neither raises, and a query runs
 @pytest.mark.parametrize("option", [dict(simple_3d_model=True),
                                     dict(keypoints_3d_source="sfm")],
                          ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_still_raise(S, option):
-    with pytest.raises(NotImplementedError):
-        NerfPoseEstimator(port_cfg(dataclasses.replace(S.cfg, **option)), device="cpu")
+    model = NerfPoseEstimator(port_cfg(dataclasses.replace(S.cfg, **option)), device="cpu")
+    b = dict(S.tbatch)
+    b["points3d"] = S.tbatch["topk_poses"][0, :3, 3] + torch.linspace(-1, 1, 120)[:, None]
+    with torch.no_grad():
+        out = model.localize_forward(b, generator=torch.Generator().manual_seed(0))
+    assert out["mkps3d"].shape == (S.cfg.matching.fine_num_3d_keypoints, 3)
+    assert bool(torch.isfinite(out["pose"]).all())
 
 
 @pytest.fixture(scope="module")

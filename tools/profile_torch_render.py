@@ -65,7 +65,7 @@ def profile_kind(kind, render, batch, rays, dtype, n_prof: int = 3):
         T = cs.StageTimer()
         T.wrap(nerf, "ray_depths", "z values / guided pass")
         T.wrap(cn, "compute_projections", "projection")
-        T.wrap(nerf, "render_knn", "knn_proj")
+        T.wrap(nerf, "render_neighbours", "knn_proj")
         T.wrap(nerf.multiview_aggregator, "forward", "aggregator: tables + visibility")
         T.wrap(nerf, "gather_neighbours", "neighbour gather")
         T.wrap(cn, "fused_neighbor_agg", "fused_agg kernel")
