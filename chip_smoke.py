@@ -360,6 +360,27 @@ def agg_bounds(cost, tc: str = "tf32"):
     return f32_ms, terms[unit] * 1e3, unit
 
 
+def tile_info(N: int, K: int, rows: int, params, freqs, F: int, bf16: bool) -> dict:
+    """One launch's tile: rows of a CTA (all of them read every weight
+    stage; there are no clusters), its shared memory and ring stages, and
+    the weight bytes the launch streams from L2 by count (CTAs x the packed
+    stream: fused_agg.weight_stream_bytes), not measured."""
+    from nerfloc_tpu_torch.ops import fused_agg as fa
+    RD1, RD2 = params["rd_w1"].shape[1], params["rd_w2"].shape[1]
+    smem, stages = fa.smem_plan(rows, fa.tile_samples(rows, K, bf16), K, F, freqs.numel(), RD1,
+                                RD2, bf16=bf16)
+    return {"tile_rows": rows, "smem_bytes": smem, "ring_stages": stages,
+            "l2_weight_bytes_model": fa.weight_stream_bytes(N, K, rows, F, freqs.numel(), RD2,
+                                                            bf16)}
+
+
+def tile_text(info: dict) -> str:
+    return (f"{info['tile_rows']} rows a CTA, each weight stage serving all of them, "
+            f"{info['smem_bytes']} B shared memory, {info['ring_stages']} ring stages, "
+            f"{info['l2_weight_bytes_model'] / 1e6:.1f} MB of weights from L2 per launch "
+            f"(counted: CTAs x the packed stream)")
+
+
 def check_fused_agg(dev):
     """Kernel vs plain version at the main path's shapes (every tile size),
     a ragged N, K that leave part of a tile empty and misalign its feature
@@ -372,7 +393,7 @@ def check_fused_agg(dev):
         x = agg_inputs(N, K, 195, 128, seed=N + K, dev=dev)
         with torch.no_grad():
             ref = fa.reference_agg(**x)
-        plans = [0] if N == RENDER_N else [0] + [r for r in fa.TILE_ROWS if r >= K]
+        plans = [0] if N == RENDER_N else [0, *fa.tile_options(K)]
         for rows in plans:
             out = fa.launch(**x, rows=rows)
             torch.cuda.synchronize()
@@ -421,7 +442,8 @@ def rms(t) -> float:
 def check_fused_agg_bf16(dev):
     """The bf16 instantiation against its plain version (kernel_agg, which
     rounds where the Pallas kernel at dt=bf16 rounds) at the query shapes
-    (every tile size), a ragged N, K = 3 and 12, and the render shape; and
+    (every tile size), a ragged N, K = 3 and 12, and the render shape (the
+    default tile and every wgmma tile); and
     the replayed backward (reference_agg in bf16) against autograd through
     it. bf16 cannot be held to f32 tolerances: the kernel's distance from
     the plain version must stay within BF16_TOL times the plain version's
@@ -437,13 +459,15 @@ def check_fused_agg_bf16(dev):
             ref = fa.kernel_agg(**xb)
             ref32 = fa.reference_agg(**x)
         yard_rms, yard_max = rms(ref - ref32), float((ref - ref32).abs().max())
-        plans = [0] if N == RENDER_N else [0] + [r for r in fa.TILE_ROWS if r >= K]
+        plans = [0, *(r for r in fa.tile_options(K, bf16=True)
+                      if N != RENDER_N or r >= fa.WGMMA_ROWS)]
         for rows in plans:
             out = fa.launch(**xb, rows=rows)
             torch.cuda.synchronize()
             e_rms, e_max = rms(out - ref), float((out - ref).abs().max())
             worst = max(worst, e_max)
-            print(f"fused_agg bf16 N={N} K={K} rows={rows or fa.tile_plan(N, K, fa._sm_count(dev))[0]}: "
+            print(f"fused_agg bf16 N={N} K={K} rows="
+                  f"{rows or fa.tile_plan(N, K, fa._sm_count(dev), bf16=True)[0]}: "
                   f"vs plain rms {e_rms:.3g} max {e_max:.3g}; plain bf16 vs f32 rms "
                   f"{yard_rms:.3g} max {yard_max:.3g} (tol rms <= {BF16_TOL} x, "
                   f"max <= {BF16_TOL_MAX} x)")
@@ -1587,21 +1611,28 @@ def check_fused_agg_bf16_steps(dev, card: str):
         x = agg_inputs(N, RENDER_K, 195, 128, seed=seed, dev=dev)
         xb = agg_inputs_bf16(x)
         with torch.no_grad():
-            out = fa.launch(**xb)
             ref = fa.kernel_agg(**xb)
             ref32 = fa.reference_agg(**x)
-        torch.cuda.synchronize()
         yard_rms, yard_max = rms(ref - ref32), float((ref - ref32).abs().max())
-        e_rms, e_max = rms(out - ref), float((out - ref).abs().max())
-        worst = max(worst, e_max)
-        print(f"fused_agg bf16 {tag} shape N={N} K={RENDER_K} "
-              f"({fa.tile_plan(N, RENDER_K, fa._sm_count(dev))[0]}-row tiles): vs plain rms "
-              f"{e_rms:.3g} max {e_max:.3g}; plain bf16 vs f32 rms {yard_rms:.3g} max "
-              f"{yard_max:.3g} (tol rms <= {BF16_TOL} x, max <= {BF16_TOL_MAX} x)")
-        if not (bool(torch.isfinite(out).all()) and e_rms <= BF16_TOL * yard_rms
-                and e_max <= BF16_TOL_MAX * yard_max):
-            fail(f"fused_agg bf16 disagrees with kernel_agg at the {tag} shape")
-        del out, ref, ref32
+        default = fa.tile_plan(N, RENDER_K, fa._sm_count(dev), bf16=True)[0]
+        tiles = sorted({default, *(r for r in fa.tile_options(RENDER_K, bf16=True)
+                                   if r >= fa.WGMMA_ROWS)})
+        for rows in tiles:
+            with torch.no_grad():
+                out = fa.launch(**xb, rows=rows)
+            torch.cuda.synchronize()
+            e_rms, e_max = rms(out - ref), float((out - ref).abs().max())
+            worst = max(worst, e_max)
+            print(f"fused_agg bf16 {tag} shape N={N} K={RENDER_K} ({rows}-row tiles"
+                  f"{', default' if rows == default else ''}): vs plain rms {e_rms:.3g} max "
+                  f"{e_max:.3g}; plain bf16 vs f32 rms {yard_rms:.3g} max {yard_max:.3g} "
+                  f"(tol rms <= {BF16_TOL} x, max <= {BF16_TOL_MAX} x)")
+            if not (bool(torch.isfinite(out).all()) and e_rms <= BF16_TOL * yard_rms
+                    and e_max <= BF16_TOL_MAX * yard_max):
+                fail(f"fused_agg bf16 disagrees with kernel_agg at the {tag} shape, "
+                     f"{rows}-row tiles")
+            del out
+        del ref, ref32
         cot = torch.randn(N, 128, generator=torch.Generator().manual_seed(seed)).to(dev)
         wkeys = fa.PARAM_KEYS if tag == "train" else ()
         grads = []
@@ -1624,12 +1655,19 @@ def check_fused_agg_bf16_steps(dev, card: str):
             p = {k: v.clone().requires_grad_(k in wkeys) for k, v in xb["params"].items()}
             o = fa.reference_agg(**{**xb, **leaves, "params": p}, dtype=bf)
             torch.autograd.grad(o, list(leaves.values()) + [p[k] for k in wkeys], cot)
-        with torch.no_grad():
-            k_ms = device_ms(lambda: fa.launch(**xb), iters=10)
-            p_ms = device_ms(lambda: fa.kernel_agg(**xb), iters=3)
-        b_ms_replay = device_ms(backward, iters=3)
         cost = agg_cost(N, RENDER_K, 195, 128, xb["params"], xb["freqs"], 2)
         f32_ms, b_ms, unit = agg_bounds(cost, "bf16")
+        by_tile = {}
+        with torch.no_grad():
+            for rows in tiles:
+                by_tile[rows] = device_ms(lambda: fa.launch(**xb, rows=rows), iters=10)
+                info = tile_info(N, RENDER_K, rows, xb["params"], xb["freqs"], 195, True)
+                print(f"fused_agg bf16 {tag} shape N={N} K={RENDER_K}, {rows}-row tiles: kernel "
+                      f"{by_tile[rows]:.4f} ms ({100 * b_ms / by_tile[rows]:.1f} % of its bound); "
+                      f"{tile_text(info)}; {card}")
+            k_ms = by_tile[default]
+            p_ms = device_ms(lambda: fa.kernel_agg(**xb), iters=3)
+        b_ms_replay = device_ms(backward, iters=3)
         if k_ms < b_ms:
             fail(f"fused_agg bf16 at the {tag} shape reads faster than its bound ({k_ms} < {b_ms})")
         print(f"fused_agg bf16 {tag} shape N={N} K={RENDER_K}: replayed backward equal to "
@@ -1638,7 +1676,10 @@ def check_fused_agg_bf16_steps(dev, card: str):
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} ({100 * b_ms / k_ms:.1f} %); "
               f"replayed backward {b_ms_replay:.4f} ms; {card}")
         times.update({f"{tag}_ms": k_ms, f"{tag}_plain_ms": p_ms, f"{tag}_bound_ms": b_ms,
-                      f"{tag}_backward_replay_ms": b_ms_replay})
+                      f"{tag}_backward_replay_ms": b_ms_replay,
+                      f"{tag}_ms_by_tile_rows": by_tile,
+                      f"{tag}_tile": tile_info(N, RENDER_K, default, xb["params"], xb["freqs"],
+                                               195, True)})
         del x, xb, cot
         torch.cuda.empty_cache()
     return worst, times
@@ -3440,22 +3481,28 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
         return agg_inputs_bf16(x) if bf16 else x
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_f32_ms": 0.0}
     units = []
+    tiles = {}
+
+    def info(N, K, rows):
+        return tile_info(N, K, rows, params, x["freqs"], 3 + C, bf16)
     for N, K in ((n_kp, 8), (n_kp, 1)):
         x = inputs(N, K, seed=K)
-        rows_default = fa.tile_plan(N, K, n_sm)[0]
+        rows_default = fa.tile_plan(N, K, n_sm, bf16)[0]
+        tiles[f"query_k{K}"] = info(N, K, rows_default)
         with torch.no_grad():
-            for rows in [r for r in fa.TILE_ROWS if r >= K]:
+            for rows in fa.tile_options(K, bf16):
                 r_ms = device_ms(lambda: fa.launch(**x, rows=rows))
                 print(f"{tag} N={N} K={K} rows={rows}: kernel {r_ms:.4f} ms"
-                      f"{' (default)' if rows == rows_default else ''}; {card}")
+                      f"{' (default)' if rows == rows_default else ''}; "
+                      f"{tile_text(info(N, K, rows))}; {card}")
             k_ms = device_ms(lambda: fa.launch(**x))
             pack_ms = device_ms(lambda: fa.pack_agg_weights(
                 params, 3 + C, x["freqs"].numel(), dtype=x["mv_agg"].dtype))
             p_ms = device_ms(lambda: plain(**x))
         prod, other, nbytes_ = cost = agg_cost(N, K, 3 + C, W, params, x["freqs"], nbytes)
         f32_ms, b_ms, unit = agg_bounds(cost, tc)
-        smem, stages = fa.smem_plan(rows_default, rows_default // K, K, 3 + C,
-                                    x["freqs"].numel(), *rd_widths, bf16=bf16)
+        smem, stages = fa.smem_plan(rows_default, fa.tile_samples(rows_default, K, bf16), K,
+                                    3 + C, x["freqs"].numel(), *rd_widths, bf16=bf16)
         if k_ms < b_ms:
             fail(f"{tag} N={N} K={K} reads faster than its bound ({k_ms} < {b_ms} ms)")
         tot["ms"] += k_ms
@@ -3471,15 +3518,21 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
               f"{nbytes_ / 1e6:.2f} MB); {card}")
     # render shape: N = 4096 rays x 64 samples, K = 8
     x = inputs(RENDER_N, RENDER_K, seed=3)
+    r_rows = fa.tile_plan(RENDER_N, RENDER_K, n_sm, bf16)[0]
+    tiles["render"] = info(RENDER_N, RENDER_K, r_rows)
+    cost = agg_cost(RENDER_N, RENDER_K, 3 + C, W, params, x["freqs"], nbytes)
+    rf32_ms, rb_ms, r_unit = agg_bounds(cost, tc)
     with torch.no_grad():
         r_ms = device_ms(lambda: fa.launch(**x), iters=5)
         r32_ms = device_ms(lambda: fa.launch(**x, rows=32), iters=5)
+        for rows in (r for r in fa.tile_options(RENDER_K, bf16) if r >= fa.WGMMA_ROWS):
+            t_ms = device_ms(lambda: fa.launch(**x, rows=rows), iters=5)
+            print(f"{tag} render N={RENDER_N} K={RENDER_K} rows={rows}: kernel {t_ms:.4f} ms "
+                  f"({100 * rb_ms / t_ms:.1f} % of its bound)"
+                  f"{' (default)' if rows == r_rows else ''}; "
+                  f"{tile_text(info(RENDER_N, RENDER_K, rows))}; {card}")
         rp_ms = device_ms(lambda: plain(**x), iters=3)
-    cost = agg_cost(RENDER_N, RENDER_K, 3 + C, W, params, x["freqs"], nbytes)
-    rf32_ms, rb_ms, r_unit = agg_bounds(cost, tc)
-    r_rows = fa.tile_plan(RENDER_N, RENDER_K, n_sm)[0]
-    r_smem, r_stages = fa.smem_plan(r_rows, r_rows // RENDER_K, RENDER_K, 3 + C,
-                                    x["freqs"].numel(), *rd_widths, bf16=bf16)
+    r_smem, r_stages = tiles["render"]["smem_bytes"], tiles["render"]["ring_stages"]
     if r_ms < rb_ms:
         fail(f"{tag} at the render shape reads faster than its bound ({r_ms} < {rb_ms} ms)")
     print(f"{tag} render N={RENDER_N} K={RENDER_K}: kernel {r_ms:.4f} ms "
@@ -3504,6 +3557,9 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
         "library_ms": None,
         "render_ms": r_ms, "render_plain_ms": rp_ms, "render_bound_ms": rb_ms,
         "render_bound_f32_ms": rf32_ms,
+        **({"tile_rows": {k: v["tile_rows"] for k, v in tiles.items()},
+            "l2_weight_bytes_model": {k: v["l2_weight_bytes_model"] for k, v in tiles.items()}}
+           if bf16 else {}),
     }
 
 
@@ -3675,6 +3731,10 @@ def main() -> int:
                     "sfm_train_launches_per_step")},
                 "options_small_cuda_vs_cpu_max_err": options_err},
                prep]
+    for tag in ("train", "refine"):   # the bf16 tiles at the step shapes (phase 13b)
+        tile = kernels[1].pop(f"{tag}_tile")
+        for key in ("tile_rows", "l2_weight_bytes_model"):
+            kernels[1][key][tag] = tile[key]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -71,9 +71,10 @@
 //   bf16 by the wrapper (round to nearest even, as astype), two k-steps of
 //   16 a stage.
 // - Every product is one bf16 MMA accumulated in f32 (where 3xTF32 spends
-//   three): wgmma m64n128k16 for 64-row tiles (the ring then holds each
-//   k-step's [16, 128] tile in the f32 wgmma layout's core matrices, 8 n-rows
-//   of 16 bytes, two k-halves 2 KB apart), mma.sync m16n8k16 otherwise.
+//   three): wgmma m64n128k16 for tiles of 64 rows and more (the ring then
+//   holds each k-step's [16, 128] tile in the f32 wgmma layout's core
+//   matrices, 8 n-rows of 16 bytes, two k-halves 2 KB apart), mma.sync
+//   m16n8k16 for the 16- and 32-row tiles of the query shapes.
 // - The CUDA-core phases round where the Pallas kernel does: products to
 //   bf16, then the bias added in bf16, leaky ReLU as max(x, bf16(0.01) x)
 //   in bf16, the ray-diff MLP from bf16 inputs and weights with f32 sums,
@@ -90,6 +91,56 @@
 //   k-step (20 either way). One product rounded once instead was measured
 //   0.65x as far from the plain version as bf16 is from f32 (RMS, N=1024,
 //   K=8); with the blocks only the f32 sum order differs.
+//
+// bf16 tiles of 64 and 128 rows (the train, refinement and render shapes,
+// N = 32768-262144, K = 8) run fused_agg_wide, written for this
+// card. What bounds it: ~221 kFLOP of products per row is ~54 tensor-core
+// cycles of an SM, against ~1.3 kB of weights a row at 64 rows a stage and
+// some ~20 CUDA-core operations a row for each of the 128 values of each
+// product's epilogue, plus the embedding (sin/cos of 30 phases) and the
+// ray-diff MLP. The 64-row design before it waited for each k-step's MMA
+// (measured ~650 cycles a k-step for ~64 of tensor work) and ran one 64-row
+// chain per CTA; its CUDA-core phases left the tensor cores idle. Here:
+// - CTAs of NWG = rows / 64 consumer warpgroups and no producer warp. Each
+//   warpgroup owns 64 rows (whole samples: 64 / K of them) and runs the
+//   chain with its own named barrier; the warpgroups meet only at the
+//   weight ring, whose every 8 KB stage all of them read. Two CTAs of 128
+//   rows an SM keep the tensor cores busy while a warpgroup builds its
+//   inputs, waits or rounds, and each stage serves 128 rows (half the
+//   64-row design's L2 stream per row). Each warp releases a slot with an
+//   arrival on its empty mbarrier; the arrival that completes the phase
+//   refills the slot, stage nst further on, after an acquire fence.
+// - Measured on the card and dropped: 256-row tiles of four warpgroups
+//   (one CTA an SM; slower than two 128-row CTAs at every shape), a
+//   persistent grid (CTAs walking tiles, the next tile's features
+//   bulk-copied during the products: one 128-row CTA an SM, ~1.3x slower)
+//   and builder warpgroups that build the next tile's inputs while their
+//   consumers run the products (~1.1x slower: they halve the consumers an
+//   SM). The grid already overlaps one CTA's prologue with the other's
+//   products, and each of these gives up that second CTA.
+// - The warpgroup and warp indices are read through __shfl_sync, so the
+//   compiler sees them warp-uniform: wgmma behind a branch it must take
+//   for divergent is serialized (ptxas C7520).
+// - Activations live in CoreTile layout (8 x 8 core matrices, K-major), so
+//   every product reads A from shared memory through a descriptor, as it
+//   reads B: a stage's two k-steps are issued back to back, committed once
+//   and waited for (wait_group 1) only when the next stage is in flight;
+//   fc0 waits in full only at its five block ends, whose bf16 rounding the
+//   Pallas kernel fixes. The epilogues write CoreTile, fenced for the async
+//   proxy. Register-sourced A for the features (odd row stride) measured
+//   ~3x the cycles a stage of the descriptor form, so the prologue moves
+//   each pass of feature rows (bulk-copied into the embedding's region,
+//   free until then) into a CoreTile.
+// - The epilogues and fc0's block sums round two columns at a time in
+//   bf16x2: rounding the f32 sum of two bf16 values to bf16 is the
+//   correctly rounded bf16 sum, so the results equal the f32 add and
+//   rounding of the plain version bit for bit.
+// - The attention runs a warp a sample, lane (key, head), reading 16-byte
+//   chunks of K and V rows without bank conflicts; the prologue spreads
+//   the ray-diff MLP over two threads a row and interleaves rows for ILP.
+// - 128 rows take 110,976 B of shared memory (two CTAs an SM, 3 ring
+//   stages); 64 rows three an SM. The timings per tile and shape are in
+//   PERF.md.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -222,6 +273,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > kSpinLimit) __trap();  // a phase error faults, never hangs
   }
+}
+
+// mbar_arrive, true for the arrival that completes the phase (the state
+// before it, which arrive returns, has one arrival pending)
+__device__ __forceinline__ bool mbar_arrive_last(uint64_t* bar) {
+  uint32_t pending;
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%1];\n"
+      "mbarrier.pending_count.b64 %0, st;\n}"
+      : "=r"(pending)
+      : "r"(smem_u32(bar))
+      : "memory");
+  return pending == 1;
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -581,9 +646,9 @@ __device__ __forceinline__ void fold_block(float (&acc)[MT][4][4], uint32_t (&to
 // kTwo (fc0): the product is the bf16 sum of the products of its blocks
 // [feat | off | sin | cos | rdfc], each rounded to bf16, as the Pallas
 // kernel sums them (the blocks are padded to whole k-steps); acc returns it.
-template <int MT, bool kFull, bool kTwo, bool kPre = false>
+template <int MT, bool kFull, bool kTwo, bool kPre = false, typename R = Ring>
 __device__ __forceinline__ void gemm_bf(float (&acc)[MT][4][4], const Operand<bf16>& x, int mt_n,
-                                        int nks, Ring& ring, int wn, int lane) {
+                                        int nks, R& ring, int wn, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
@@ -705,149 +770,37 @@ __device__ __forceinline__ void store_bf(const float (&acc)[MT][4][4], bf16* Y, 
   }
 }
 
-// d[64x128] += a[64x16] (registers, bf16) @ B[16x128] (shared, bf16, K-major)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// gemm_wg for bf16: d = X[64, :] @ Wkn[:, 128], warp w holding rows 16w..
-// of A in registers (the m16n8k16 fragment layout), one wgmma m64n128k16 per
-// k-step against the stage's core-matrix tile (the f32 layout's strides at
-// 2-byte elements). kTwo (fc0): the product is the bf16 sum of its blocks'
-// products, each rounded, as in gemm_bf.
-template <bool kTwo>
-__device__ __forceinline__ void gemm_wg_bf(float (&d)[64], const Operand<bf16>& x, int nks,
-                                           Ring& ring, int warp, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  uint32_t tot[kTwo ? 32 : 1];
-  int blk = 0;
-  for (int s = 0; s < nks; s += kStageK) {
-    const unsigned char* ws = reinterpret_cast<const unsigned char*>(ring.acquire());
-#pragma unroll
-    for (int kk = 0; kk < kStageK; ++kk) {
-      const int ks = s + kk;
-      if (kTwo && ks >= x.nks_c) continue;   // the same for the whole warpgroup
-      const bool first = !kTwo || ks < x.nks1;
-      const bf16* base = first ? x.x1 + ks * kKStepB : x.x2 + (ks - x.nks1) * kKStepB;
-      const int ld = first ? x.ld1 : x.ld2;
-      const int kv = x.kv1 - ks * kKStepB;
-      const bf16* xr = base + (16 * warp + g) * ld + 2 * t;
-      uint32_t a[4];
-      if (kTwo && first) {
-        a[0] = ld_pair_masked(xr, 2 * t, kv);
-        a[1] = ld_pair_masked(xr + 8 * ld, 2 * t, kv);
-        a[2] = ld_pair_masked(xr + 8, 2 * t + 8, kv);
-        a[3] = ld_pair_masked(xr + 8 * ld + 8, 2 * t + 8, kv);
-      } else {
-        a[0] = ld_pair(xr);
-        a[1] = ld_pair(xr + 8 * ld);
-        a[2] = ld_pair(xr + 8);
-        a[3] = ld_pair(xr + 8 * ld + 8);
-      }
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-      wgmma_bf16(d, a, b_desc(ws + kk * kTileBytesB));
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      if constexpr (kTwo) {
-        const int end = blk == 0 ? x.nks1 : blk < 4 ? x.blk_end[blk - 1] : x.nks_c;
-        if (ks + 1 == end) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            float a0 = rnd<bf16>(d[2 * i]), a1 = rnd<bf16>(d[2 * i + 1]);
-            if (blk > 0) {
-              const float2 tf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[i]));
-              a0 = tf.x + a0;
-              a1 = tf.y + a1;
-            }
-            const __nv_bfloat162 r = __floats2bfloat162_rn(a0, a1);
-            tot[i] = *reinterpret_cast<const uint32_t*>(&r);
-            d[2 * i] = 0.f;
-            d[2 * i + 1] = 0.f;
-          }
-          ++blk;
-        }
-      }
-    }
-    ring.release(lane);
+// Element (r, c) of a [rows, 128] tile: at row stride ld (RowMajor), or in
+// the wide tiles' core-matrix layout (CoreTile: 64 rows, 8 x 8 blocks of 16
+// bytes a row, rows of a block 16 bytes apart, blocks of 8 rows 128 bytes
+// apart, blocks of 8 columns 1 KB apart; the K-major layout wgmma reads
+// through a descriptor).
+struct RowMajor {
+  int ld;
+  __device__ __forceinline__ int operator()(int r, int c) const { return r * ld + c; }
+};
+struct CoreTile {
+  __device__ __forceinline__ int operator()(int r, int c) const {
+    return ((c >> 3) << 9) + ((r >> 3) << 6) + ((r & 7) << 3) + (c & 7);
   }
-  if constexpr (kTwo) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float2 tf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[i]));
-      d[2 * i] = tf.x;
-      d[2 * i + 1] = tf.y;
-    }
-  }
-}
-
-// store_bf for gemm_wg_bf's accumulators: warp w's rows 16w + g (+8), n-tile
-// j at d[4j .. 4j + 3], as store_wg lays them out.
-__device__ __forceinline__ void store_wg_bf(const float (&d)[64], bf16* Y,
-                                            const float* __restrict__ bias, int nb, bool act,
-                                            int warp, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = j * 8 + 2 * t;
-    float bx = 0.f, by = 0.f;
-    if (bias != nullptr) {
-      if (c < nb) bx = rnd<bf16>(__ldg(bias + c));
-      if (c + 1 < nb) by = rnd<bf16>(__ldg(bias + c + 1));
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float vx = rnd<bf16>(rnd<bf16>(d[4 * j + 2 * h]) + bx);
-      float vy = rnd<bf16>(rnd<bf16>(d[4 * j + 2 * h + 1]) + by);
-      if (act) {
-        vx = leaky_b(vx);
-        vy = leaky_b(vy);
-      }
-      const int r = 16 * warp + g + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(Y + r * kLdhB + c) = __floats2bfloat162_rn(vx, vy);
-    }
-  }
-}
+};
 
 // Residual + LayerNorm over the first W (<= 128) columns, one warp per
-// sample, the row held in registers (4 values a lane); the residual sum and
-// the statistics are f32.
-template <typename E>
-__device__ __forceinline__ void layer_norm(const Args& a, const E* Y, int ldy, const E* R,
-                                           int ldr, int n0, int t_valid, int warp, int nwarps,
-                                           int lane) {
+// sample, the row held in registers (4 values a lane); y of sample t at
+// Y[at(t, c)] (RowMajor, or the wide tiles' CoreTile), the residual at row
+// stride ldr; the residual sum and the statistics are f32.
+template <typename E, typename At>
+__device__ __forceinline__ void layer_norm(const Args& a, const E* Y, At at, const E* R, int ldr,
+                                           int n0, int t_valid, int warp, int nwarps, int lane) {
   const int W = a.W;
   for (int t = warp; t < t_valid; t += nwarps) {
-    const E* y = Y + t * ldy;
     const E* res = R + static_cast<size_t>(t) * ldr;
     float v[kHd / 32];
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kHd / 32; ++i) {
       const int c = lane + 32 * i;
-      v[i] = c < W ? to_f(y[c]) + to_f(res[c]) : 0.f;
+      v[i] = c < W ? to_f(Y[at(t, c)]) + to_f(res[c]) : 0.f;
       s += v[i];
     }
     const float mean = warp_sum(s) / W;
@@ -931,20 +884,16 @@ __device__ __forceinline__ void attention(E* Q, const E* Kt, const E* Vt, int ld
   }
 }
 
-// One 64/32/16-row product of the chain, Y = act(X @ Wkn + bias): wgmma
-// for 64-row tiles and mma.sync otherwise, in either element type.
-// in_place: Y overwrites the operand's region, so every warp must have
-// read it first.
+// One 64/32/16-row product of the chain, Y = act(X @ Wkn + bias): f32
+// wgmma for 64-row tiles and mma.sync otherwise (bf16 tiles of 64 rows and
+// more run in fused_agg_wide). in_place: Y overwrites the operand's region,
+// so every warp must have read it first.
 template <int MT, bool kTwo, typename E>
 __device__ __forceinline__ void product(const Operand<E>& x, int nks, Ring& ring, E* Y,
                                         const float* bias, int nb, bool act, bool in_place,
                                         int warp, int lane) {
-  if constexpr (std::is_same<E, bf16>::value && MT == 4) {
-    float d[64];
-    gemm_wg_bf<kTwo>(d, x, nks, ring, warp, lane);
-    if (in_place) bar_consumers(kConsThreads);
-    store_wg_bf(d, Y, bias, nb, act, warp, lane);
-  } else if constexpr (std::is_same<E, bf16>::value) {
+  static_assert(!(std::is_same<E, bf16>::value && MT == 4), "bf16 64-row tiles are wide tiles");
+  if constexpr (std::is_same<E, bf16>::value) {
     float acc[MT][4][4];
     gemm_bf<MT, true, kTwo>(acc, x, MT, nks, ring, warp, lane);
     if (in_place) bar_consumers(kConsThreads);
@@ -1206,8 +1155,8 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
     bar_consumers(kConsThreads);
     product<MT, false>(opB, kKs, ring, A, nullptr, 0, false, false, warp, lane);
     bar_consumers(kConsThreads);
-    layer_norm<E>(a, A, kLd, mv + static_cast<size_t>(n0) * W, W, n0, t_valid, warp, kCons,
-                  lane);
+    layer_norm(a, A, RowMajor{kLd}, mv + static_cast<size_t>(n0) * W, W, n0, t_valid, warp, kCons,
+               lane);
     return;
   }
 
@@ -1243,7 +1192,708 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   else
     store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, 1.f, warp, lane);
   bar_consumers(kConsThreads);
-  layer_norm<E>(a, Q, kLd, MV, kLd, n0, t_valid, warp, kCons, lane);
+  layer_norm(a, Q, RowMajor{kLd}, MV, kLd, n0, t_valid, warp, kCons, lane);
+}
+
+// ---- wide bf16 tiles: warpgroups of 64 rows sharing one weight ring --------
+
+constexpr int kWgRows = 64;            // rows of one consumer warpgroup
+constexpr int kWgThreads = 128;
+constexpr int kWgWarps = 4;
+// A-operand descriptor strides of CoreTile (no swizzle): blocks of 8
+// columns (K) 1 KB apart, blocks of 8 rows 128 bytes apart
+constexpr uint32_t kALbo = 1024;
+constexpr uint32_t kASbo = 128;
+constexpr int kCoreKStep = 2 * 512;    // elements of one k-step (16 columns) of a CoreTile
+constexpr int kWideHeader = 256;       // bytes of a wide CTA's barriers
+
+// the warpgroup's own barrier (ids 1.. ; 0 is __syncthreads)
+__device__ __forceinline__ void bar_wg(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "r"(kWgThreads) : "memory");
+}
+
+// generic-proxy writes of shared memory made visible to wgmma's (async
+// proxy) reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+// keeps the compiler from moving accesses of the accumulators across the
+// wgmma issue and wait instructions
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint64_t a_desc(const void* tile) {
+  return ((smem_u32(tile) & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(kALbo >> 4) << 16) |
+         (static_cast<uint64_t>(kASbo >> 4) << 32);
+}
+
+// d[64x128] += A[64x16] (shared, bf16, K-major CoreTile) @ B[16x128] (shared)
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The weight ring of a wide CTA. Every consumer warp reads every stage and
+// releases it with one arrival (release semantics) on the slot's empty
+// barrier. The arrival that completes the barrier's phase (the barrier's
+// state before it shows one arrival pending) refills the slot with the
+// stage nst further on, after an acquire of that phase, so no warp is set
+// aside to produce and none waits to refill. Stage `it` of the stream is
+// packed stage `it` (+ skip_n from skip_at on: with K = 1 the key and query
+// products are not streamed).
+struct WideRing {
+  unsigned char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  const unsigned char* src;
+  int nst, total, skip_at, skip_n;
+  int aslot, rslot, rel;   // this warp's next slot to acquire and to release, stages released
+  uint32_t aphase, rphase;
+
+  __device__ __forceinline__ void fill(int slot, int it) const {
+    const int at = it < skip_at ? it : it + skip_n;
+    mbar_expect_tx(full + slot, kStageBytes);
+    bulk_load(buf + slot * kStageBytes, src + static_cast<size_t>(at) * kStageBytes, kStageBytes,
+              full + slot);
+  }
+  __device__ __forceinline__ const float* acquire() {
+    mbar_wait(full + aslot, aphase);
+    const unsigned char* p = buf + aslot * kStageBytes;
+    if (++aslot == nst) {
+      aslot = 0;
+      aphase ^= 1u;
+    }
+    return reinterpret_cast<const float*>(p);
+  }
+  // the oldest stage this warp holds, once all its lanes are done with it
+  __device__ __forceinline__ void release(int lane) {
+    __syncwarp();
+    if (lane == 0 && mbar_arrive_last(empty + rslot) && rel + nst < total) {
+      // acquire: every warp's release arrival came before this one's
+      asm volatile("fence.acq_rel.cta;" ::: "memory");
+      fill(rslot, rel + nst);
+    }
+    if (++rslot == nst) {
+      rslot = 0;
+      rphase ^= 1u;
+    }
+    ++rel;
+  }
+};
+
+// The A operand of a wide product: the CoreTile `tile` (a descriptor per
+// k-step), of which nks_c k-steps are computed. Bit ks of fold is set where
+// one of fc0's blocks ends after k-step ks (a mask, so that the test is
+// uniform across the warpgroup as the compiler sees it); the first block
+// ends at the lowest bit.
+struct WideOperand {
+  const bf16* tile;
+  int nks_c;
+  uint32_t fold;
+};
+
+// the two bf16 of a word (lower column in the low half) as f32
+__device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the four words of a 16-byte chunk of bf16
+__device__ __forceinline__ void words(const uint4& v, uint32_t (&w)[4]) {
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
+// bf16(bf16(a) + bf16(b)) for two columns at once. The f32 sum of two bf16
+// values rounded to bf16 is the correctly rounded bf16 sum (24 >= 2 * 8 + 2
+// bits: the double rounding is innocuous), which is what the bf16x2 add
+// computes, so this equals the f32 add and rounding the plain version does.
+__device__ __forceinline__ __nv_bfloat162 add_bf2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hadd2(a, b);
+}
+
+// fc0's block sum: tot = bf16(tot + bf16(d)) (tot = bf16(d) for the first
+// block), d = 0; tot holds bf16 pairs
+__device__ __forceinline__ void fold_wide(float (&d)[64], uint32_t (&tot)[32], bool first) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    __nv_bfloat162 r = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+    if (!first) r = add_bf2(*reinterpret_cast<const __nv_bfloat162*>(&tot[i]), r);
+    tot[i] = bf2_bits(r);
+    d[2 * i] = 0.f;
+    d[2 * i + 1] = 0.f;
+  }
+}
+
+// d = X[64, :] @ Wkn[:, 128] for one warpgroup, one wgmma m64n128k16 per
+// k-step, A and B through descriptors. A stage's k-steps are issued back to
+// back and committed once; a stage is waited for (wait_group 1) only once
+// the next one is issued, then its slot is released; fc0's block ends wait
+// in full. kTwo (fc0): the product is the bf16 sum of its blocks'
+// products, each rounded, as in gemm_bf.
+template <bool kTwo>
+__device__ __forceinline__ void gemm_wide(float (&d)[64], const WideOperand& x, int nks,
+                                          WideRing& ring, int ww, int lane) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  uint32_t tot[kTwo ? 32 : 1];
+  bool pend = false;   // the previous stage's slot is still held
+  const uint32_t first_end = x.fold & (0u - x.fold);   // the lowest bit
+  for (int s = 0; s < nks; s += kStageK) {
+    const unsigned char* ws = reinterpret_cast<const unsigned char*>(ring.acquire());
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStageK; ++kk) {
+      const int ks = s + kk;
+      if (kTwo && ks >= x.nks_c) break;   // the same for the whole warpgroup
+      wgmma_bf16_ss(d, a_desc(x.tile + ks * kCoreKStep), b_desc(ws + kk * kTileBytesB));
+      if constexpr (kTwo) {
+        if ((x.fold >> ks) & 1u) {
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(d);
+          if (pend) {
+            ring.release(lane);
+            pend = false;
+          }
+          fold_wide(d, tot, (1u << ks) == first_end);
+          fence_acc(d);
+          wgmma_fence();
+        }
+      }
+    }
+    wgmma_commit();
+    if (pend) {
+      wgmma_wait<1>();
+      ring.release(lane);
+    }
+    pend = true;
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  if (pend) ring.release(lane);
+  if constexpr (kTwo) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float2 tf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[i]));
+      d[2 * i] = tf.x;
+      d[2 * i + 1] = tf.y;
+    }
+  }
+}
+
+// Y (CoreTile) = act(bf16(d) + bf16(bias)) as store_bf rounds: warp ww's
+// rows 16 ww + g (+8), n-tile j at d[4j .. 4j + 3]; then made visible to
+// the next product's descriptor reads. Two columns at a time, in bf16x2:
+// the bias sum by add_bf2, the leaky ReLU as multiply and max (x *
+// bf16(0.01) is exact in f32, so the bf16 multiply rounds it once, as
+// leaky_b does).
+__device__ __forceinline__ void store_wide(const float (&d)[64], bf16* Y,
+                                           const float* __restrict__ bias, int nb, bool act,
+                                           int ww, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const __nv_bfloat162 leak = __float2bfloat162_rn(kLeakB);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = j * 8 + 2 * t;
+    const __nv_bfloat162 b2 = __floats2bfloat162_rn(
+        bias != nullptr && c < nb ? __ldg(bias + c) : 0.f,
+        bias != nullptr && c + 1 < nb ? __ldg(bias + c + 1) : 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat162 y = __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      if (bias != nullptr) y = add_bf2(y, b2);
+      if (act) y = __hmax2(y, __hmul2(y, leak));
+      *reinterpret_cast<__nv_bfloat162*>(Y + CoreTile{}(16 * ww + g + 8 * h, c)) = y;
+    }
+  }
+  fence_async_smem();
+}
+
+// q . k of one key and head: the 32 products of bf16 values rounded to bf16
+// (as attention<bf16> rounds them), summed in f32 (four partial sums). q
+// holds the head's 32 values of q as 16 words; the key is row `row` of the
+// CoreTile Kt.
+__device__ __forceinline__ float head_score(const bf16* Kt, const uint32_t (&q)[16], int row,
+                                            int h) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t kw[4];
+    words(*reinterpret_cast<const uint4*>(Kt + CoreTile{}(row, h * kDk + 8 * i)), kw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t p = bf2_bits(__floats2bfloat162_rn(lo_f(q[4 * i + e]) * lo_f(kw[e]),
+                                                        hi_f(q[4 * i + e]) * hi_f(kw[e])));
+      s[e] += lo_f(p) + hi_f(p);
+    }
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// One round of attention_wide's sum over a head's lanes: lanes whose bit
+// kHalf / 4 is set keep dimensions [kHalf, 2 kHalf) of o, the others [0,
+// kHalf), each adding its partner's (lane ^ kHalf / 4) into o[0, kHalf).
+template <int kHalf>
+__device__ __forceinline__ void halve(float (&o)[kDk], bool upper) {
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) {
+    const float send = upper ? o[d] : o[d + kHalf];
+    const float keep = upper ? o[d + kHalf] : o[d];
+    o[d] = keep + __shfl_xor_sync(0xffffffffu, send, kHalf / 4);
+  }
+}
+
+// Lq=1 attention of the wide tiles, rounding as attention<bf16>: one warp a
+// sample, lane (j, h) = (lane % 8, lane / 8) takes key k0 + j of head h in
+// each group of 8 keys: its score (head_score), the max of all K scores
+// (a first pass), exp(s - max) summed in f32 and rounded before it meets v,
+// each lane summing its keys' weighted 32 values of v in f32; the 8 lanes of
+// a head then add their sums (lane j keeps dimensions 4j..4j+3) and write
+// o = bf16(sum * bf16(1 / den)) over q. Key and value rows are read 16
+// bytes at a time, 8 rows apart across the lanes of a head: no bank
+// conflicts beyond the four heads'.
+__device__ __forceinline__ void attention_wide(bf16* Q, const bf16* Kt, const bf16* Vt, int K,
+                                               int t_valid, int ww, int lane) {
+  const int j = lane & 7;
+  const int h = lane >> 3;
+  for (int t = ww; t < t_valid; t += kWgWarps) {
+    uint32_t q[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t w[4];
+      words(*reinterpret_cast<const uint4*>(Q + t * kLdhB + h * kDk + 8 * i), w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) q[4 * i + e] = w[e];
+    }
+    float m = -3.402823466e38f;
+    for (int k0 = 0; k0 < K; k0 += 8)
+      if (k0 + j < K) m = fmaxf(m, head_score(Kt, q, t * K + k0 + j, h));
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float den = 0.f;
+    float o[kDk];
+#pragma unroll
+    for (int d = 0; d < kDk; ++d) o[d] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      if (k0 + j >= K) continue;
+      const int row = t * K + k0 + j;
+      const float e = expf(head_score(Kt, q, row, h) - m);
+      den += e;
+      const float w = rnd<bf16>(e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t vw[4];
+        words(*reinterpret_cast<const uint4*>(Vt + CoreTile{}(row, h * kDk + 8 * i)), vw);
+#pragma unroll
+        for (int e2 = 0; e2 < 4; ++e2) {
+          o[8 * i + 2 * e2] = fmaf(w, lo_f(vw[e2]), o[8 * i + 2 * e2]);
+          o[8 * i + 2 * e2 + 1] = fmaf(w, hi_f(vw[e2]), o[8 * i + 2 * e2 + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) den += __shfl_xor_sync(0xffffffffu, den, off);
+    // sum over the head's 8 lanes, halving the dimensions a lane keeps each
+    // round: 32 -> 16 (lane bit 2) -> 8 (bit 1) -> 4 (bit 0)
+    halve<16>(o, (j & 4) != 0);
+    halve<8>(o, (j & 2) != 0);
+    halve<4>(o, (j & 1) != 0);
+    const float r = rnd<bf16>(1.f / den);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Q + t * kLdhB + h * kDk + 4 * j);
+    dst[0] = __floats2bfloat162_rn(o[0] * r, o[1] * r);
+    dst[1] = __floats2bfloat162_rn(o[2] * r, o[3] * r);
+  }
+}
+
+// One wide product Y = act(X @ Wkn + bias) of a warpgroup. in_place: Y
+// overwrites the operand's region, so every warp must have read it first.
+template <bool kTwo>
+__device__ __forceinline__ void product_wide(const WideOperand& x, int nks, WideRing& ring, bf16* Y,
+                                             const float* bias, int nb, bool act, bool in_place,
+                                             int wg, int ww, int lane) {
+  float d[64];
+  gemm_wide<kTwo>(d, x, nks, ring, ww, lane);
+  if (in_place) bar_wg(wg);
+  store_wide(d, Y, bias, nb, act, ww, lane);
+}
+
+__device__ __forceinline__ WideOperand core_operand(const bf16* tile) {
+  return WideOperand{tile, kHd / kKStepB, 0u};
+}
+
+// One pass of a warpgroup's neighbour features, rows [r0, r1) (those below
+// rows_valid): the block src[0, n) (contiguous in device memory) goes to the
+// staging copy SX, its 16-byte-aligned body by one bulk copy, the < 16
+// bytes at either end by hand; SX is shifted so that source and copy align
+// alike.
+struct FeaturePass {
+  const bf16* src;
+  bf16* SX;
+  int n, head, body;
+  __device__ __forceinline__ FeaturePass(const bf16* feat, bf16* stage, int F, int r0, int r1,
+                                         int rows_valid) {
+    src = feat + r0 * F;
+    n = (max(r0, min(r1, rows_valid)) - r0) * F;
+    head = min(static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) /
+                                sizeof(bf16)),
+               n);
+    body = (n - head) & ~7;
+    SX = stage + ((8 - head) & 7);
+  }
+  __device__ __forceinline__ void issue(uint64_t* bar) const {
+    mbar_expect_tx(bar, body * sizeof(bf16));
+    if (body > 0) bulk_load(SX + head, src + head, body * sizeof(bf16), bar);
+  }
+};
+
+// Rows [r0, r1) of a warpgroup's neighbour features from the staging copy
+// SX (rows at stride F from row r0, 2-byte aligned) into the CoreTile FC
+// [64, 8 nblk], zero at columns >= F and rows >= rows_valid: thread (r, p) =
+// (r0 + wt % 64, wt / 64) fills the 8-column blocks p, p + 2, ... of row r,
+// each read as 4 aligned words, or as 5 shifted into place when it starts
+// on an odd element.
+__device__ __forceinline__ void stage_features(bf16* FC, const bf16* SX, int F, int nblk, int r0,
+                                               int r1, int rows_valid, int wt) {
+  const int r = r0 + wt % kWgRows;
+  if (r >= r1) return;
+  const bool row_ok = r < rows_valid;
+  for (int cb = wt / kWgRows; cb < nblk; cb += kWgThreads / kWgRows) {
+    const int c0 = 8 * cb;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (row_ok && c0 < F) {
+      const uintptr_t ad = reinterpret_cast<uintptr_t>(SX + (r - r0) * F + c0);
+      const uint32_t* wp = reinterpret_cast<const uint32_t*>(ad & ~uintptr_t(3));
+      uint32_t x5[5];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) x5[i] = wp[i];
+      const uint32_t sh = (ad & 3) ? 16u : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = __funnelshift_r(x5[i], x5[i + 1], sh);
+      if (c0 + 8 > F) {   // the row's last block: columns >= F read as 0
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (c0 + 2 * i >= F) w[i] = 0u;
+          else if (c0 + 2 * i + 1 >= F) w[i] &= 0xffffu;
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(FC + CoreTile{}(r, c0)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The bf16 instantiation at tiles of 64 NWG rows: NWG consumer warpgroups
+// (no producer warp), warpgroup wg holding samples [(b NWG + wg) Twg, +Twg)
+// of CTA b, Twg = 64 / K, in its own region of shared memory; the
+// warpgroups meet only at the weight ring, whose stages all of them read.
+// Each warpgroup runs the 64-row chain of fused_agg_kernel with its own
+// barrier, its activations in CoreTile layout (A of every product after
+// the features through a descriptor), mv staged after fc0 where x_in was.
+template <int NWG>
+__global__ void __launch_bounds__(NWG * kWgThreads, 4 / NWG) fused_agg_wide(const Args a) {
+  extern __shared__ __align__(128) float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const int K = a.K, F = a.F, W = a.W, NF = a.NF;
+  const int RD1 = a.RD1, RD2 = a.RD2;
+  const int tid = threadIdx.x;
+  // warpgroup, thread in it, warp in it (warp-uniform as the compiler sees
+  // them: a wgmma behind a branch it takes for divergent is serialized)
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  const int wt = tid % kWgThreads;
+  const int ww = __shfl_sync(0xffffffffu, wt >> 5, 0);
+  const int lane = tid & 31;
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);               // [kMaxStages]
+  uint64_t* empty = full + kMaxStages;                              // [kMaxStages]
+  uint64_t* feat_bar = empty + kMaxStages;                          // [NWG]
+  unsigned char* ring_buf = base + kWideHeader;                     // [nst, 8 KB]
+  float* RDW = reinterpret_cast<float*>(ring_buf + a.nst * kStageBytes);
+  unsigned char* wbase = reinterpret_cast<unsigned char*>(RDW + a.rdw_floats) +
+                         static_cast<size_t>(wg) * (2 * a.region + 4 * a.off_floats);
+  bf16* FEAT = reinterpret_cast<bf16*>(wbase);                      // CoreTile [64, 16 ks_f]; later A | B | Q
+  bf16* EMB = FEAT + a.feat_elems;                                  // CoreTile [64, 16 ks_e]
+  float* OFF = reinterpret_cast<float*>(wbase + 2 * a.region);      // [64, 4] f32 offsets
+  bf16* A = FEAT;                                                   // CoreTile [64, 128]
+  bf16* B = FEAT + kWgRows * kHd;                                   // CoreTile [64, 128]
+  bf16* Q = B + kWgRows * kHd;                                      // [q_rows, kLdhB] (K > 1)
+
+  const int twg = a.T / NWG;
+  const int n0 = (blockIdx.x * NWG + wg) * twg;
+  const int t_valid = max(0, min(twg, a.N - n0));
+  const int rows_valid = t_valid * K;
+  // the stream: fc0, then six [128, 128] products (K = 1: wk and wq not read)
+  const int fc0_st = a.ks0p / kStageK;
+  const int sq_st = kHd / kKStepB / kStageK;
+  WideRing ring{ring_buf, full, empty, static_cast<const unsigned char*>(a.wpack), a.nst,
+                fc0_st + (K == 1 ? 4 : 6) * sq_st, fc0_st + 3 * sq_st, K == 1 ? 2 * sq_st : 0,
+                0, 0, 0, 0u, 0u};
+  // the geometry of row gr (phase 2), its loads in flight across the set-up
+  const int gr = wt % kWgRows;
+  float off[3] = {0.f, 0.f, 0.f};
+  float rdiff[4] = {0.f, 0.f, 0.f, 0.f};
+  if (gr < rows_valid) {
+    const int r = gr;
+    const int tt = r / K;
+    const int n = n0 + tt;
+    const size_t nk = static_cast<size_t>(n) * K + (r - tt * K);
+    const float sc = __ldg(a.scale);
+    float d3[3], nb[3], diff[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      off[d] = (a.xyz[static_cast<size_t>(n) * 3 + d] - a.nb_xyz[nk * 3 + d]) / sc;
+      d3[d] = a.dir[static_cast<size_t>(n) * a.dir_stride + d];
+      nb[d] = a.nb_dir[nk * 4 + d];
+      diff[d] = d3[d] - nb[d];
+    }
+    const float ss = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+    const float den = fmaxf(sqrtf(ss + 1e-12f), 1e-6f);
+    rdiff[0] = diff[0] / den;
+    rdiff[1] = diff[1] / den;
+    rdiff[2] = diff[2] / den;
+    rdiff[3] = d3[0] * nb[0] + d3[1] * nb[1] + d3[2] * nb[2];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kMaxStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NWG * kWgWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the warpgroup's first pass of features (step 1) is in flight across the
+  // set-up
+  const bf16* feat = static_cast<const bf16*>(a.nb_feat) + static_cast<size_t>(n0) * K * F;
+  const int pass = min(kWgRows, (kWgRows * a.lde - 16) / F);   // + the shift and a read ahead
+  if (wt == 0) {
+    mbar_init(feat_bar + wg, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    FeaturePass(feat, EMB, F, 0, min(kWgRows, pass), rows_valid).issue(feat_bar + wg);
+  }
+  // ray-diff MLP weights [rd_w1 | rd_b1 | rd_w2 | rd_b2] (f32), for the CTA
+  float* w1s = RDW;
+  float* b1s = w1s + 4 * RD1;
+  float* w2s = b1s + RD1;
+  float* b2s = w2s + RD1 * RD2;
+  for (int i = tid; i < 4 * RD1; i += NWG * kWgThreads) cp_async4(w1s + i, a.rd_w1 + i);
+  for (int i = tid; i < RD1; i += NWG * kWgThreads) cp_async4(b1s + i, a.rd_b1 + i);
+  for (int i = tid; i < RD1 * RD2; i += NWG * kWgThreads) cp_async4(w2s + i, a.rd_w2 + i);
+  for (int i = tid; i < RD2; i += NWG * kWgThreads) cp_async4(b2s + i, a.rd_b2 + i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < a.nst && s < ring.total; ++s) ring.fill(s, s);
+  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0], each block on
+  // a whole k-step (zeros between), for fc0's block sums
+  const int off_col = 0;
+  const int sin_col = kKStepB;
+  const int trig = (3 * NF + kKStepB - 1) / kKStepB * kKStepB;
+  const int cos_col = sin_col + trig;
+  const int rd_col = cos_col + trig;
+  const CoreTile at{};
+  const bf16* mv = static_cast<const bf16*>(a.mv);
+
+  // 1. the neighbour features of the warpgroup's samples into the CoreTile
+  //    FEAT, in passes of up to `pass` rows: each pass's block (contiguous
+  //    in device memory) bulk-copied into the embedding's region, free until
+  //    step 2 (FeaturePass; the first pass was issued at the start), then
+  //    moved by stage_features; the embedding zeroed
+  for (int r0 = 0, ph = 0; r0 < kWgRows; r0 += pass, ph ^= 1) {
+    const int r1 = min(kWgRows, r0 + pass);
+    const FeaturePass fp(feat, EMB, F, r0, r1, rows_valid);
+    if (wt == 0 && r0 > 0) {
+      fence_async_smem();   // the previous pass's reads of the region come first
+      fp.issue(feat_bar + wg);
+    }
+    const bf16* src = fp.src;
+    bf16* SX = fp.SX;
+    const int n = fp.n, head = fp.head, body = fp.body;
+    if (wt < head) SX[wt] = src[wt];
+    if (wt < n - head - body) SX[head + body + wt] = src[head + body + wt];
+    mbar_wait(feat_bar + wg, ph);
+    bar_wg(wg);
+    stage_features(FEAT, SX, F, 2 * a.ks_f, r0, r1, rows_valid, wt);
+    bar_wg(wg);
+  }
+  for (int i = wt; i < kWgRows * a.ks_e * kKStepB / 8; i += kWgThreads)
+    reinterpret_cast<uint4*>(EMB)[i] = make_uint4(0u, 0u, 0u, 0u);
+  bar_wg(wg);
+
+  // 2. two threads a row: the offsets and rdiff (computed above), half of
+  //    the ray-diff MLP's hidden layer h each, parked in the row's sin
+  //    columns (RD1 <= 2 trig) until the embedding is written
+  {
+    const int r = gr;
+    const int half = wt / kWgRows;
+    if (half == 0) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        EMB[at(r, off_col + d)] = from_f<bf16>(off[d]);
+        OFF[r * 4 + d] = off[d];
+      }
+    }
+    // bf16 inputs and weights, f32 sums, then bf16(product) + bf16(bias)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rdiff[i] = rnd<bf16>(rdiff[i]);
+    const int mh = (RD1 + 1) / 2;
+    for (int m = half * mh; m < min(RD1, (half + 1) * mh); ++m) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], rnd<bf16>(w1s[i * RD1 + m]), s);
+      EMB[at(r, sin_col + m)] = from_f<bf16>(leaky_b(rnd<bf16>(rnd<bf16>(s) + rnd<bf16>(b1s[m]))));
+    }
+  }
+  bar_wg(wg);
+  // 3. the ray-diff MLP's output layer: one warp a row (four rows at a
+  //    time), lane n < RD2 holds column n of rd_w2 in registers (zero from
+  //    RD1 on, where the sin block holds zeros)
+  {
+    float w2c[kMaxRd];
+#pragma unroll
+    for (int m = 0; m < kMaxRd; ++m)
+      w2c[m] = rnd<bf16>((m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f);
+    const float b2c = rnd<bf16>(lane < RD2 ? b2s[lane] : 0.f);
+    const int chunks = (RD1 + 7) / 8;
+    for (int r = ww; r < kWgRows; r += 4 * kWgWarps) {
+      // h[m] for m < 8 chunks (zero from RD1 on, as w2c): 16-byte chunks
+      // of the row's sin block
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kMaxRd / 8; ++i) {
+        if (i >= chunks) break;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint32_t hw[4];
+          words(*reinterpret_cast<const uint4*>(EMB + at(r + u * kWgWarps, sin_col + 8 * i)), hw);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[u] = fmaf(lo_f(hw[e]), w2c[8 * i + 2 * e], s[u]);
+            s[u] = fmaf(hi_f(hw[e]), w2c[8 * i + 2 * e + 1], s[u]);
+          }
+        }
+      }
+      if (lane < RD2) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          EMB[at(r + u * kWgWarps, rd_col + lane)] =
+              from_f<bf16>(leaky_b(rnd<bf16>(rnd<bf16>(s[u]) + b2c)));
+      }
+    }
+  }
+  bar_wg(wg);
+  // 4. frequency embedding (f32 phases, accurate sincosf), one warp a row
+  //    (two rows at a time)
+  for (int r = ww; r < kWgRows; r += 2 * kWgWarps) {
+    for (int j = lane; j < 3 * NF; j += 32) {
+      const float f = __ldg(a.freqs + j / 3);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float sn, cs;
+        sincosf(OFF[(r + u * kWgWarps) * 4 + j % 3] * f, &sn, &cs);
+        EMB[at(r + u * kWgWarps, sin_col + j)] = from_f<bf16>(sn);
+        EMB[at(r + u * kWgWarps, cos_col + j)] = from_f<bf16>(cs);
+      }
+    }
+  }
+  fence_async_smem();
+  bar_wg(wg);
+
+  // 5. base_mlp and the value projection (fc0 over the CoreTile [features |
+  //    embedding]); once fc0 has read it, its region holds A, B and Q
+  const int ks_trig = trig / kKStepB;
+  const int nks_c = a.ks_f + a.ks_e;   // blocks end after [feat | off | sin | cos | rdfc]
+  const WideOperand x_in{FEAT, nks_c,
+                         (1u << (a.ks_f - 1)) | (1u << a.ks_f) | (1u << (a.ks_f + ks_trig)) |
+                             (1u << (a.ks_f + 2 * ks_trig)) | (1u << (nks_c - 1))};
+  constexpr int kKs = kHd / kKStepB;
+  product_wide<true>(x_in, a.ks0p, ring, A, a.b0, W, true, true, wg, ww, lane);
+  // mv of the warpgroup's samples into Q (K > 1), in flight during fc1..k
+  constexpr int kPer = 2;   // bf16 of one 4-byte copy (W even)
+  for (int t = ww; t < a.q_rows; t += kWgWarps) {
+    const bf16* mr = mv + static_cast<size_t>(n0 + t) * W;
+    for (int c = kPer * lane; c < kHd; c += 32 * kPer) {
+      if (t < t_valid && c < W) {
+        cp_async4(Q + t * kLdhB + c, mr + c);
+      } else {
+        Q[t * kLdhB + c] = from_f<bf16>(0.f);
+        Q[t * kLdhB + c + 1] = from_f<bf16>(0.f);
+      }
+    }
+  }
+  cp_async_commit();
+  bar_wg(wg);
+  product_wide<false>(core_operand(A), kKs, ring, B, a.b1, W, true, false, wg, ww, lane);
+  bar_wg(wg);
+  product_wide<false>(core_operand(B), kKs, ring, A, a.b2, W, true, false, wg, ww, lane);  // pf
+  bar_wg(wg);
+  product_wide<false>(core_operand(A), kKs, ring, B, nullptr, 0, false, false, wg, ww, lane);  // v
+  const bf16* mv0 = mv + static_cast<size_t>(n0) * W;
+
+  if (K == 1) {
+    // 6'. one neighbour: o = v; y = v @ wfc; residual from device memory
+    bar_wg(wg);
+    product_wide<false>(core_operand(B), kKs, ring, A, nullptr, 0, false, false, wg, ww, lane);
+    bar_wg(wg);
+    layer_norm(a, A, at, mv0, W, n0, t_valid, ww, kWgWarps, lane);
+    return;
+  }
+
+  // 6. keys (over pf, in place) and queries (16-row tiles of mv, mma.sync)
+  product_wide<false>(core_operand(A), kKs, ring, A, nullptr, 0, false, true, wg, ww, lane);  // k
+  cp_async_wait<0>();
+  bar_wg(wg);
+  float acc[4][4][4];
+  const int mt_q = a.q_rows / 16;
+  gemm_bf<4, false, false, true>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
+                                 ring, ww, lane);
+  bar_wg(wg);   // every warp has read mv
+  store_bf<4>(acc, Q, mt_q, nullptr, 0, false, rnd<bf16>(a.q_scale), ww, lane);
+  bar_wg(wg);
+
+  // 7. Lq=1 attention over the K neighbours
+  attention_wide(Q, A, B, K, t_valid, ww, lane);
+  bar_wg(wg);
+
+  // 8. output projection, residual and LayerNorm
+  gemm_bf<4, false, false, true>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
+                                 ring, ww, lane);
+  bar_wg(wg);   // every warp has read o
+  store_bf<4>(acc, Q, mt_q, nullptr, 0, false, 1.f, ww, lane);
+  bar_wg(wg);
+  layer_norm(a, Q, RowMajor{kLdhB}, mv0, W, n0, t_valid, ww, kWgWarps, lane);
 }
 
 struct Plan {
@@ -1290,6 +1940,57 @@ bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, bool bf,
   return true;
 }
 
+// The wide tiles' plan: per warpgroup the x_in region (the features and the
+// embedding as CoreTiles [64, 16 ks_f] and [64, 16 ks_e]; later A, B and Q
+// [q_rows, kLdhB]) and the f32 offsets; the ray-diff MLP weights once; the
+// ring gets what is left of the CTA's share of the SM: 4 / NWG CTAs an SM
+// where two stages still fit, else fewer (64 rows: three, 128 rows: two).
+bool make_plan_wide(int nwg, int T, int K, int F, int NF, int RD1, int RD2, Plan* p) {
+  if (K > kWgRows || T != nwg * (kWgRows / K)) return false;
+  p->ks_f = (F + kKStepB - 1) / kKStepB;
+  const int emb = kKStepB + 2 * ((3 * NF + kKStepB - 1) / kKStepB * kKStepB) + RD2;
+  p->ks_e = (emb + kKStepB - 1) / kKStepB;
+  if (p->ks_f + p->ks_e > 32) return false;   // fc0's block ends are a 32-bit mask
+  p->ks0p = (p->ks_f + p->ks_e + kStageK - 1) / kStageK * kStageK;
+  p->lde = kKStepB * p->ks_e;
+  p->feat_elems = kWgRows * kKStepB * p->ks_f;   // the features' CoreTile
+  const int x_in = p->feat_elems + kWgRows * p->lde;
+  p->q_rows = K > 1 ? (T / nwg + 15) / 16 * 16 : 0;
+  const int tiles = 2 * kWgRows * kHd + p->q_rows * kLdhB;
+  p->region = ((x_in > tiles ? x_in : tiles) + 63) / 64 * 64;
+  p->rdw_floats = (4 * RD1 + RD1 + RD1 * RD2 + RD2 + 31) / 32 * 32;
+  p->off_floats = 4 * kWgRows;
+  const size_t rest = kWideHeader + sizeof(float) * p->rdw_floats +
+                      static_cast<size_t>(nwg) * (2 * p->region + sizeof(float) * p->off_floats);
+  for (int per_sm = 4 / nwg; per_sm >= 1; --per_sm) {
+    const size_t cap = per_sm == 1 ? kSmemMax : (kSmemMax + 1024) / per_sm - 1024;
+    if (rest + 2 * kStageBytes > cap) continue;
+    const size_t fit = (cap - rest) / kStageBytes;
+    p->nst = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+    p->smem = rest + static_cast<size_t>(p->nst) * kStageBytes;
+    return true;
+  }
+  return false;
+}
+
+bool plan_for(int rows, int T, int K, int F, int NF, int RD1, int RD2, bool bf, Plan* p) {
+  if (bf && rows >= kWgRows)
+    return (rows == kWgRows || rows == 2 * kWgRows) &&
+           make_plan_wide(rows / kWgRows, T, K, F, NF, RD1, RD2, p);
+  return rows <= kWgRows && make_plan(rows, T, K, F, NF, RD1, RD2, bf, p);
+}
+
+template <int NWG>
+int launch_wide(const Args& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_agg_wide<NWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.N + a.T - 1) / a.T;
+  fused_agg_wide<NWG><<<grid, NWG * kWgThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int MT, typename E>
 int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(fused_agg_kernel<MT, E>,
@@ -1301,12 +2002,12 @@ int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-int launch_rows(const Args& a, int rows, size_t smem, cudaStream_t s) {
+int launch_rows(const Args& a, int rows, bool bf, size_t smem, cudaStream_t s) {
   switch (rows) {
-    case 16: return launch_kernel<1, E>(a, smem, s);
-    case 32: return launch_kernel<2, E>(a, smem, s);
-    case 64: return launch_kernel<4, E>(a, smem, s);
+    case 16: return bf ? launch_kernel<1, bf16>(a, smem, s) : launch_kernel<1, float>(a, smem, s);
+    case 32: return bf ? launch_kernel<2, bf16>(a, smem, s) : launch_kernel<2, float>(a, smem, s);
+    case 64: return bf ? launch_wide<1>(a, smem, s) : launch_kernel<4, float>(a, smem, s);
+    case 128: return bf ? launch_wide<2>(a, smem, s) : static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1320,7 +2021,7 @@ extern "C" {
 size_t fused_agg_smem_bytes(int rows, int T, int K, int F, int NF, int RD1, int RD2, int bf,
                             int* stages) {
   Plan p;
-  if (!make_plan(rows, T, K, F, NF, RD1, RD2, bf != 0, &p)) return 0;
+  if (!plan_for(rows, T, K, F, NF, RD1, RD2, bf != 0, &p)) return 0;
   if (stages != nullptr) *stages = p.nst;
   return p.smem;
 }
@@ -1328,7 +2029,9 @@ size_t fused_agg_smem_bytes(int rows, int T, int K, int F, int NF, int RD1, int 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = success).
 // bf != 0: the bf16 instantiation (mv, nb_feat and wpack bf16), else f32.
 // wpack holds the seven products in the ring's order and layout
-// (ops/fused_agg.py:pack_agg_weights); rows in {16, 32, 64}, T*K <= rows.
+// (ops/fused_agg.py:pack_agg_weights); rows in {16, 32, 64} (f32) or {16,
+// 32, 64, 128} (bf16), T*K <= rows; bf16 tiles of 64 and 128 rows hold
+// T = (rows / 64) (64 / K) samples (K <= 64).
 int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const void* mv,
                       const float* nb_xyz, const float* nb_dir, const void* nb_feat,
                       const float* scale, const float* freqs, const float* rd_w1,
@@ -1341,7 +2044,7 @@ int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const 
   Plan p;
   if (T < 1 || K < 1 || T * K > rows || W < 1 || W > kHd || (bf && W % 2) || RD1 < 1 ||
       RD1 > kMaxRd || RD1 > 6 * NF || RD2 < 1 || RD2 > kMaxRd ||
-      !make_plan(rows, T, K, F, NF, RD1, RD2, bf != 0, &p))
+      !plan_for(rows, T, K, F, NF, RD1, RD2, bf != 0, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{xyz,    dir,    mv,     nb_xyz,        nb_dir,   nb_feat,  scale,
                freqs,  rd_w1,  rd_b1,  rd_w2,         rd_b2,    wpack,    b0,
@@ -1350,7 +2053,7 @@ int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const 
                p.ks_f, p.ks_e, p.ks0p, p.lde,         p.feat_elems,       p.region,
                p.q_rows,       p.nst,  p.rdw_floats,  p.off_floats,       q_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf ? launch_rows<bf16>(a, rows, p.smem, s) : launch_rows<float>(a, rows, p.smem, s);
+  return launch_rows(a, rows, bf != 0, p.smem, s);
 }
 
 }  // extern "C"

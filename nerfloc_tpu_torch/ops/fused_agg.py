@@ -10,13 +10,14 @@ On Hopper the kernel is csrc/fused_agg.cu (hand-written CUDA C++, built by
 ops/native.py), in two instantiations, as the Pallas kernel has two
 (`dt`): f32, whose seven matrix products run on the tensor cores as 3xTF32
 (f32 accuracy; wgmma for 64-row tiles, mma.sync for smaller ones), and
-bf16 (mv_agg and nb_feat in bf16, one bf16 MMA per product: wgmma for
-64-row tiles, mma.sync otherwise; rounding where the Pallas kernel
-rounds). Both are fed by a ring of weight
-stages that a producer warp fills with cp.async.bulk ahead of need; a
-tile's activations stay in shared memory, so device memory sees each input
-once and each output once (see the source's header note). The output is
-f32 either way.
+bf16 (mv_agg and nb_feat in bf16, one bf16 MMA per product; rounding where
+the Pallas kernel rounds): mma.sync for 16- and 32-row tiles, and for
+tiles of 64 and 128 rows `fused_agg_wide`, whose consumer warpgroups
+of 64 rows share one weight ring and keep their wgmma products in flight.
+Both are fed by a ring of weight stages filled with cp.async.bulk ahead of
+need; a tile's activations stay in shared memory, so device memory sees
+each input once and each output once (see the source's header note). The
+output is f32 either way.
 
 - `reference_agg`: the plain PyTorch version of JAX's reference_agg, at
   f32 or bf16. f32 CPU tensors take it; the backward replays it at the
@@ -25,7 +26,9 @@ f32 either way.
   where the Pallas kernel at dt=bf16 rounds. bf16 CPU tensors take it.
 - `pack_agg_weights`: the seven products in the ring's order and MMA
   layout (one of four), built on the device with one gather per call.
-- `tile_plan`: rows per CTA and samples per CTA for a launch.
+- `tile_options`, `tile_samples`, `tile_plan`: the tiles a launch can
+  take, the samples a tile holds, the tile a launch takes;
+  `weight_stream_bytes`: the weights a launch streams from L2.
 - `fused_neighbor_agg`: the wrapper. CPU inputs -> the plain version; CUDA
   inputs -> the kernel (or an error; there is no fallback).
 - `LAUNCHES`, `LAUNCHES_BF16`: launches of the f32 and of the bf16
@@ -48,8 +51,10 @@ N_HEAD, D_K = 4, 32
 HD = N_HEAD * D_K             # 128: attention width, and the padded W
 LN_EPS = 1e-6
 LEAK = 0.01
-TILE_ROWS = (16, 32, 64)       # rows (T*K, padded) of one CTA: 16 x MT
-WGMMA_ROWS = 64                # tiles whose products run as wgmma
+TILE_ROWS = (16, 32, 64, 128)   # rows (T*K, padded) of one CTA; f32 up to 64
+# tiles of this many rows and more run their products as wgmma; a bf16 one
+# has a consumer warpgroup for each WGMMA_ROWS rows
+WGMMA_ROWS = 64
 PARAM_KEYS = ("rd_w1", "rd_b1", "rd_w2", "rd_b2", "b_w0p", "b_b0", "b_w1",
               "b_b1", "b_w2", "b_b2", "a_wq", "a_wk", "a_wv", "a_wfc",
               "ln_s", "ln_b")
@@ -358,8 +363,8 @@ def pack_agg_weights(params: Dict[str, Tensor], F: int, NF: int,
     For wgmma (f32 64-row tiles) each k-step's [8, 128] tile is stored
     twice, big = tf32_rna(w) then small = tf32_rna(w - big). For the bf16
     instantiation (dtype=bf16) the weights are rounded to bf16 to nearest
-    even, as astype rounds, in the mma.sync or (64-row tiles) the wgmma
-    layout. One cat and one gather on the
+    even, as astype rounds, in the mma.sync or (tiles of 64 rows and more)
+    the wgmma layout. One cat and one gather on the
     params' device; the index is cached, not the weights (they may change
     between calls)."""
     W = params["b_b0"].shape[0]
@@ -379,21 +384,51 @@ def pack_agg_weights(params: Dict[str, Tensor], F: int, NF: int,
     return torch.stack([big, tf32_rna(tiles - big)], dim=1).reshape(-1)
 
 
-def tile_plan(N: int, K: int, n_sm: int) -> Tuple[int, int]:
-    """(rows, T): rows of one CTA and the T = rows // K samples it holds;
+def tile_options(K: int, bf16: bool = False) -> Tuple[int, ...]:
+    """The tile sizes (rows of one CTA) a launch with K neighbours can take:
+    f32 tiles of up to 64 rows, bf16 ones of up to 128 (64 rows a consumer
+    warpgroup from 64 on, so K <= 64)."""
+    if not 1 <= K <= WGMMA_ROWS:
+        raise ValueError(f"fused_agg: unsupported K={K}")
+    return tuple(r for r in TILE_ROWS if r >= K and (bf16 or r <= WGMMA_ROWS))
+
+
+def tile_samples(rows: int, K: int, bf16: bool = False) -> int:
+    """Samples T one CTA of `rows` rows holds: rows // K, or in bf16 tiles
+    of 64 rows and more 64 // K for each warpgroup (a sample's K rows stay
+    in one warpgroup)."""
+    if bf16 and rows >= WGMMA_ROWS:
+        return rows // WGMMA_ROWS * (WGMMA_ROWS // K)
+    return rows // K
+
+
+def tile_plan(N: int, K: int, n_sm: int, bf16: bool = False) -> Tuple[int, int]:
+    """(rows, T): rows of one CTA and the T samples it holds (tile_samples);
     CTA b takes samples [b T, min(N, (b + 1) T)).
 
-    The largest tile that still gives every SM a CTA (fewer, fuller CTAs
-    read the weights fewer times); launches too small for that take the
-    smallest tile, to spread over more SMs (PERF.md has the times of every
-    tile at the query and render shapes)."""
-    if not 1 <= K <= TILE_ROWS[-1]:
-        raise ValueError(f"fused_agg: unsupported K={K}")
-    options = [r for r in TILE_ROWS if r >= K]
+    The largest tile that still gives every SM a CTA; launches too small
+    for that take the smallest tile, to spread over more SMs. On the H100
+    the largest bf16 tile, 128 rows (two CTAs an SM), ran ahead of 64 rows
+    and of four-warpgroup 256-row tiles at the train, refinement and render
+    shapes (PERF.md has the times of every tile at each shape)."""
+    options = tile_options(K, bf16)
     for rows in reversed(options):
-        if -(-N // (rows // K)) >= n_sm:
-            return rows, rows // K
-    return options[0], options[0] // K
+        if -(-N // tile_samples(rows, K, bf16)) >= n_sm:
+            return rows, tile_samples(rows, K, bf16)
+    return options[0], tile_samples(options[0], K, bf16)
+
+
+def weight_stream_bytes(N: int, K: int, rows: int, F: int, NF: int, RD2: int,
+                        bf16: bool = False) -> int:
+    """Bytes of packed weights one launch streams into the CTAs' rings, by
+    count, not measured: every CTA issues the whole stream once (with K = 1
+    the key and query products are skipped), whatever its number of rows."""
+    T = tile_samples(rows, K, bf16)
+    depth = 16 if bf16 else 8
+    _, fin_p = ring_widths(F, NF, RD2, depth)
+    per_elem = 2 if bf16 else (8 if rows >= WGMMA_ROWS else 4)   # f32 wgmma: big and small
+    products = 6 if K > 1 else 4
+    return -(-N // T) * (fin_p + products * HD) * HD * per_elem
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +486,7 @@ def launch(xyz: Tensor, direction: Tensor, mv_agg: Tensor, nb_xyz: Tensor,
     """Run the CUDA kernel on PyTorch's current stream -> [N, W] f32. The
     instantiation follows mv_agg's dtype: f32, or bf16 (then nb_feat is
     bf16 too and W even); everything else is f32. `rows` overrides
-    tile_plan's tile (one of TILE_ROWS)."""
+    tile_plan's tile (one of tile_options(K, bf16))."""
     dev = mv_agg.device
     if dev.type != "cuda":
         raise ValueError("fused_agg.launch needs CUDA tensors")
@@ -484,15 +519,15 @@ def launch(xyz: Tensor, direction: Tensor, mv_agg: Tensor, nb_xyz: Tensor,
     for k in PARAM_KEYS:
         _check(k, params[k], shapes[k], dev)
     if rows:
-        if rows not in TILE_ROWS or rows < K:
+        if rows not in tile_options(K, bf16):
             raise ValueError(f"fused_agg: rows={rows} with K={K}")
-        T = rows // K
+        T = tile_samples(rows, K, bf16)
     else:
-        rows, T = tile_plan(N, K, _sm_count(dev))
+        rows, T = tile_plan(N, K, _sm_count(dev), bf16)
     out = torch.empty((N, W), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    wpack = pack_agg_weights(params, F, NF, wgmma=rows == WGMMA_ROWS, dtype=act)
+    wpack = pack_agg_weights(params, F, NF, wgmma=rows >= WGMMA_ROWS, dtype=act)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn()(
         xyz.data_ptr(), direction.data_ptr(), direction.shape[1],

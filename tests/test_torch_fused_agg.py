@@ -350,19 +350,64 @@ def test_tf32_rounding_emulation():
     assert torch.equal(_tf32(x), want)
 
 
-@pytest.mark.parametrize("N", [1, 1000, 1024, 262144])
+@pytest.mark.parametrize("N", [1, 1000, 1024, 32768, 65536, 262144])
 @pytest.mark.parametrize("K", [1, 8])
 def test_tile_plan_covers_every_row_once(N, K):
     """(c) CTA b takes samples [b T, min(N, (b + 1) T)): every sample (so
-    every row n K + k) lands in exactly one CTA, within its rows."""
-    rows, T = tfa.tile_plan(N, K, n_sm=132)
-    assert rows in tfa.TILE_ROWS and 1 <= T and T * K <= rows
-    grid = -(-N // T)
-    count = np.zeros(N, np.int64)
-    starts = np.arange(grid) * T
-    np.add.at(count, np.concatenate([np.arange(s, min(N, s + T)) for s in starts]), 1)
-    assert (count == 1).all()
-    assert grid * T >= N > (grid - 1) * T
+    every row n K + k) lands in exactly one CTA, within its rows; f32 tiles
+    stay at 64 rows or fewer, bf16 ones may take the wide tiles."""
+    for bf16 in (False, True):
+        rows, T = tfa.tile_plan(N, K, n_sm=132, bf16=bf16)
+        assert rows in tfa.tile_options(K, bf16) and 1 <= T and T * K <= rows
+        assert T == tfa.tile_samples(rows, K, bf16)
+        grid = -(-N // T)
+        count = np.zeros(N, np.int64)
+        starts = np.arange(grid) * T
+        np.add.at(count, np.concatenate([np.arange(s, min(N, s + T)) for s in starts]), 1)
+        assert (count == 1).all()
+        assert grid * T >= N > (grid - 1) * T
+
+
+@pytest.mark.parametrize("N", [32768, 65536, 262144])
+def test_tile_plan_takes_128_row_bf16_tiles_at_the_step_shapes(N):
+    """At the refinement, train and render shapes (K=8) the bf16 launch
+    takes the 128-row tile, the fastest measured there; f32 stays at 64."""
+    assert tfa.tile_plan(N, 8, n_sm=132, bf16=True) == (128, 16)
+    assert tfa.tile_plan(N, 8, n_sm=132) == (64, 8)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 12, 64])
+def test_wide_tiles_keep_each_sample_in_one_warpgroup(K):
+    """bf16 tiles of 64 rows and more are warpgroups of 64 rows, each with
+    whole samples (the attention of a sample reads its K rows in its own
+    warpgroup): T = (rows / 64) (64 // K); f32 has no such tiles."""
+    assert max(tfa.tile_options(K)) == 64
+    for rows in tfa.tile_options(K, bf16=True):
+        T = tfa.tile_samples(rows, K, bf16=True)
+        if rows < tfa.WGMMA_ROWS:
+            assert T == rows // K
+            continue
+        wgs = rows // tfa.WGMMA_ROWS
+        assert T % wgs == 0 and (T // wgs) * K <= tfa.WGMMA_ROWS < (T // wgs + 1) * K
+    with pytest.raises(ValueError):
+        tfa.tile_options(65, bf16=True)
+
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("rows,bf16", [(32, False), (64, False), (32, True), (128, True)])
+def test_weight_stream_bytes_count_the_packed_ring(K, rows, bf16):
+    """weight_stream_bytes: every CTA of the launch reads the packed buffer
+    pack_agg_weights builds for its tile once, less the key and query
+    products when K = 1 (the kernel skips them)."""
+    params = _main_width_params(np.random.default_rng(1))
+    N = 5000
+    packed = tfa.pack_agg_weights(params, 195, 10, wgmma=rows >= tfa.WGMMA_ROWS,
+                                  dtype=torch.bfloat16 if bf16 else torch.float32)
+    per_cta = packed.numel() * packed.element_size()
+    if K == 1:
+        per_cta -= 2 * 128 * 128 * packed.element_size() * (2 if rows >= 64 and not bf16 else 1)
+    grid = -(-N // tfa.tile_samples(rows, K, bf16))
+    assert tfa.weight_stream_bytes(N, K, rows, 195, 10, 27, bf16) == grid * per_cta
 
 
 @pytest.mark.cuda
@@ -378,8 +423,33 @@ def test_cuda_kernel_matches_reference(setup, N, K):
     cx = {k: v.to(dev) for k, v in tx.items()}
     cp = {k: v.to(dev) for k, v in tp.items()}
     want = tfa.reference_agg(**cx, params=cp, freqs=tfreqs.to(dev))
-    plans = [0] if N > 100_000 else [0] + [r for r in tfa.TILE_ROWS if r >= K]
+    plans = [0] if N > 100_000 else [0, *tfa.tile_options(K)]
     for rows in plans:
         got = tfa.launch(**cx, params=cp, freqs=tfreqs.to(dev), rows=rows)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [65536, 32768, 262144])
+def test_cuda_bf16_wide_tiles_match_kernel_agg(N):
+    """Runs on a GPU only: the bf16 instantiation at the train (N=65536),
+    refinement (N=32768) and render (N=262144) shapes, K=8, main widths,
+    at every wgmma tile (64 and 128 rows), against its plain version
+    kernel_agg: within 0.2x (RMS) and 1.0x (max) of kernel_agg's own
+    distance from the f32 reference_agg, as chip_smoke.py holds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    params = {k: v.to(dev) for k, v in _main_width_params(np.random.default_rng(N)).items()}
+    x = {k: t(v).to(dev) for k, v in _inputs(N, 8, 195, 128, seed=N).items()}
+    freqs = torch.tensor([2.0 ** i for i in range(10)], device=dev)
+    xb = dict(x, mv_agg=x["mv_agg"].to(torch.bfloat16), nb_feat=x["nb_feat"].to(torch.bfloat16))
+    want = tfa.kernel_agg(**xb, params=params, freqs=freqs)
+    yard = want - tfa.reference_agg(**x, params=params, freqs=freqs)
+    for rows in [r for r in tfa.tile_options(8, bf16=True) if r >= tfa.WGMMA_ROWS]:
+        err = tfa.launch(**xb, params=params, freqs=freqs, rows=rows) - want
+        assert bool(torch.isfinite(err).all())
+        assert float(err.pow(2).mean().sqrt()) <= 0.2 * float(yard.pow(2).mean().sqrt()), rows
+        assert float(err.abs().max()) <= float(yard.abs().max()), rows
