@@ -64,8 +64,11 @@ Phases (any failure exits non-zero):
      3, the last one padded) and render_psnr_eval over one view, finite;
  12. the bf16 compute dtype (compute_dtype_of(Config()), the JAX package's
      default): (a) the kernel's bf16 instantiation against its plain
-     version (kernel_agg) at the query shapes (every tile size), a ragged
-     N, K = 3 and 12 and the render shape, within BF16_TOL of the plain
+     version (kernel_agg) at the query shapes (every tile size: the
+     16/32-row cluster tiles, 16 of which K = 1 takes, and the 64/128-row
+     wide tiles, 64 of which K = 8 takes), ragged N (999, 1001) at every
+     tile, K = 3 and 12, the small K > 1 launches of the 32-row cluster
+     tile and the render shape, within BF16_TOL of the plain
      version's own bf16-vs-f32 distance, and the replayed bf16 backward;
      (b) the small query and render in bf16, CUDA against the CPU, within
      the CPU's own bf16-vs-f32 distance; (c) localize_forward in bf16 at
@@ -173,8 +176,16 @@ Phases (any failure exits non-zero):
      frame, no fused_agg launch), then with --device cpu on a copy of the
      raw scene: the card's volume (tsdf, weight, r, g, b) bit-equal to the
      host copy's after the last frame, both pkls and pc.ply byte-equal;
-     the kernel's device ms per frame (CUDA events around each launch on a
-     fresh volume, frames on the card; median over two passes), its bound
+     one more frame whose camera sits inside the volume near its low-z
+     face, one float32 step in front of a plane of voxel centres (the
+     kernel's brick culling meets the slab where projections leave the int
+     range): one launch, the volume bit-equal to the host copy's, the
+     overflow counts equal and not 0; the share of bricks that the host
+     mirror of the kernel's brick test keeps (brick_keep_mask: a prediction,
+     printed in the phase's text, not in the kernels line); the kernel's device ms per frame (CUDA
+     events around each launch, behind a sleep kernel so that the host's
+     set-up is not timed, on a fresh volume, frames on the card; median
+     over two passes), its bound
      (the updated voxels' 40 bytes and the frame's own bytes at 3.35 TB/s,
      or its float operations at the FP32 peak, whichever is larger), voxels
      per second, the host copy's ms per frame, peak memory, the end-to-end
@@ -361,24 +372,28 @@ def agg_bounds(cost, tc: str = "tf32"):
 
 
 def tile_info(N: int, K: int, rows: int, params, freqs, F: int, bf16: bool) -> dict:
-    """One launch's tile: rows of a CTA (all of them read every weight
-    stage; there are no clusters), its shared memory and ring stages, and
-    the weight bytes the launch streams from L2 by count (CTAs x the packed
-    stream: fused_agg.weight_stream_bytes), not measured."""
+    """One launch's tile: rows of a CTA, the CTAs of its cluster (0: none;
+    a cluster's CTAs hold the weights once between them), its shared memory
+    and ring stages (0 for a cluster tile: its weights are resident), and
+    the weight bytes the launch reads from L2 by count
+    (fused_agg.weight_stream_bytes), not measured."""
     from nerfloc_tpu_torch.ops import fused_agg as fa
     RD1, RD2 = params["rd_w1"].shape[1], params["rd_w2"].shape[1]
     smem, stages = fa.smem_plan(rows, fa.tile_samples(rows, K, bf16), K, F, freqs.numel(), RD1,
                                 RD2, bf16=bf16)
-    return {"tile_rows": rows, "smem_bytes": smem, "ring_stages": stages,
+    return {"tile_rows": rows, "cluster": fa.tile_cluster(rows, bf16), "smem_bytes": smem,
+            "ring_stages": stages,
             "l2_weight_bytes_model": fa.weight_stream_bytes(N, K, rows, F, freqs.numel(), RD2,
                                                             bf16)}
 
 
 def tile_text(info: dict) -> str:
-    return (f"{info['tile_rows']} rows a CTA, each weight stage serving all of them, "
-            f"{info['smem_bytes']} B shared memory, {info['ring_stages']} ring stages, "
+    share = (f"clusters of {info['cluster']} CTAs holding the weights once, resident"
+             if info["cluster"] else
+             f"each weight stage serving all of them, {info['ring_stages']} ring stages")
+    return (f"{info['tile_rows']} rows a CTA, {share}, {info['smem_bytes']} B shared memory, "
             f"{info['l2_weight_bytes_model'] / 1e6:.1f} MB of weights from L2 per launch "
-            f"(counted: CTAs x the packed stream)")
+            f"(counted)")
 
 
 def check_fused_agg(dev):
@@ -389,7 +404,8 @@ def check_fused_agg(dev):
     import torch
     from nerfloc_tpu_torch.ops import fused_agg as fa
     worst = 0.0
-    for N, K in ((1024, 8), (1024, 1), (1000, 8), (300, 3), (100, 12), (RENDER_N, RENDER_K)):
+    for N, K in ((1024, 8), (1024, 1), (1000, 8), (999, 1), (1001, 8), (512, 8), (300, 3),
+                 (100, 12), (200, 12), (RENDER_N, RENDER_K)):
         x = agg_inputs(N, K, 195, 128, seed=N + K, dev=dev)
         with torch.no_grad():
             ref = fa.reference_agg(**x)
@@ -442,7 +458,10 @@ def rms(t) -> float:
 def check_fused_agg_bf16(dev):
     """The bf16 instantiation against its plain version (kernel_agg, which
     rounds where the Pallas kernel at dt=bf16 rounds) at the query shapes
-    (every tile size), a ragged N, K = 3 and 12, and the render shape (the
+    (every tile size: the 16- and 32-row cluster tiles and the wide ones),
+    ragged N (999 and 1001: a partial last tile and CTAs past N that only
+    hold weights), K = 3 and 12, the small K > 1 launches the 32-row
+    cluster tile takes (512 x 8, 200 x 12), and the render shape (the
     default tile and every wgmma tile); and
     the replayed backward (reference_agg in bf16) against autograd through
     it. bf16 cannot be held to f32 tolerances: the kernel's distance from
@@ -452,7 +471,8 @@ def check_fused_agg_bf16(dev):
     import torch
     from nerfloc_tpu_torch.ops import fused_agg as fa
     worst = 0.0
-    for N, K in ((1024, 8), (1024, 1), (1000, 8), (300, 3), (100, 12), (RENDER_N, RENDER_K)):
+    for N, K in ((1024, 8), (1024, 1), (1000, 8), (999, 1), (1001, 8), (512, 8), (300, 3),
+                 (100, 12), (200, 12), (RENDER_N, RENDER_K)):
         x = agg_inputs(N, K, 195, 128, seed=N + K, dev=dev)
         xb = agg_inputs_bf16(x)
         with torch.no_grad():
@@ -466,8 +486,9 @@ def check_fused_agg_bf16(dev):
             torch.cuda.synchronize()
             e_rms, e_max = rms(out - ref), float((out - ref).abs().max())
             worst = max(worst, e_max)
-            print(f"fused_agg bf16 N={N} K={K} rows="
-                  f"{rows or fa.tile_plan(N, K, fa._sm_count(dev), bf16=True)[0]}: "
+            r = rows or fa.tile_plan(N, K, fa._sm_count(dev), bf16=True)[0]
+            print(f"fused_agg bf16 N={N} K={K} rows={r}"
+                  f"{f' (clusters of {fa.tile_cluster(r, True)})' if fa.tile_cluster(r, True) else ''}: "
                   f"vs plain rms {e_rms:.3g} max {e_max:.3g}; plain bf16 vs f32 rms "
                   f"{yard_rms:.3g} max {yard_max:.3g} (tol rms <= {BF16_TOL} x, "
                   f"max <= {BF16_TOL_MAX} x)")
@@ -2869,10 +2890,12 @@ def _preprocess_seven_scenes(root: str, device: str):
 
 
 def _tsdf_cost(vol, frames, dev):
-    """Per frame, on a copy of the volume as it was before the frame: the
+    """Per frame (depth and colour on the card, K, c2w, the host's largest
+    depth), on a copy of the volume as it was before the frame: the
     kernel's device ms (CUDA events around one launch), the voxels it
-    updates, the voxels in front of the camera; integrating the frames in
-    order. Returns ([ms], [updated], [in front])."""
+    updates, the voxels in front of the camera, the share of bricks the
+    host mirror of the kernel's test keeps; integrating the frames in
+    order. Returns ([ms], [updated], [in front], [kept share])."""
     import numpy as np
     import torch
     from nerfloc_tpu_torch.native import tsdf as ntsdf
@@ -2883,9 +2906,14 @@ def _tsdf_cost(vol, frames, dev):
     vs = np.float32(vol.voxel_size)
     grid = [torch.as_tensor(vol.origin[a] + np.arange(n, dtype=np.float32) * vs).to(dev)
             for a, n in enumerate((nx, ny, nz))]
-    ms, updated, front = [], [], []
-    for depth, color, K, c2w in frames:
+    ms, updated, front, kept = [], [], [], []
+    for depth, color, K, c2w, depth_max in frames:
         R, t = ntsdf.world_to_camera(c2w)
+        cull = ntsdf.cull_planes(vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc,
+                                 np.asarray(K, np.float32).reshape(9), R, t, *depth.shape,
+                                 depth_max)
+        kept.append(float(ntsdf.brick_keep_mask(vol.dims, vol.origin, vol.voxel_size,
+                                                cull).mean()))
         Rt = torch.as_tensor(R).to(dev)
         pz = (grid[0][:, None, None] * Rt[6] + grid[1][None, :, None] * Rt[7]
               + float(t[2]) + grid[2][None, None, :] * Rt[8])
@@ -2894,15 +2922,72 @@ def _tsdf_cost(vol, frames, dev):
         before = work["weight"].clone()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)   # the card waits while the host sets the launch up
         start.record()
         ntsdf.integrate_frame(work, vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc,
                               depth, color, np.asarray(K, np.float32).reshape(9), R, t, 1.0,
-                              overflow)
+                              overflow, depth_max)
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
         updated.append(int((work["weight"] != before).sum()))
-    return ms, updated, front
+    return ms, updated, front, kept
+
+
+def tsdf_frame_inside(vol, seed: int):
+    """A frame whose camera sits inside the volume `vol` near its low-z
+    face, looking along +z (rotation identity), one float32 step in front
+    of a plane of voxel centres: that plane's voxels are at pz = one ulp of
+    their z, where most projections leave the int range (skipped and
+    counted), so culling meets the overflow slab. A 640x480 frame at
+    7-Scenes' intrinsics, depth 0.5-3 m and colour from `seed`. Returns
+    (depth, color, K, c2w), numpy."""
+    import numpy as np
+    from nerfloc_tpu_torch.native import tsdf as ntsdf
+    rng = np.random.default_rng(seed)
+    H, W = 480, 640
+    K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]])
+    cent = ntsdf.axis_centres(vol.dims, vol.origin, vol.voxel_size)
+    c2w = np.eye(4)
+    c2w[0, 3], c2w[1, 3] = (float(c[len(c) // 2]) + 0.003 for c in cent[:2])
+    c2w[2, 3] = float(np.nextafter(cent[2][5], np.float32(-np.inf)))
+    depth = rng.uniform(0.5, 3.0, (H, W)).astype(np.float32)
+    depth[rng.random((H, W)) < 0.05] = 0.0
+    color = rng.random((H, W, 3), dtype=np.float32)
+    return depth, color, K, c2w
+
+
+def tsdf_inside_check(vol, dev):
+    """tsdf_frame_inside into a fresh volume of `vol`'s grid on the card
+    and through the host copy: volumes bit-equal, overflow counts equal and
+    not 0, exactly one launch. Returns (overflows, kept share)."""
+    import numpy as np
+    import torch
+    from nerfloc_tpu_torch.native import tsdf as ntsdf
+    depth, color, K, c2w = tsdf_frame_inside(vol, seed=18)
+    vols = {}
+    for d in (dev, torch.device("cpu")):
+        v = ntsdf.TSDFVolume.on_grid(vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc, d)
+        n0 = ntsdf.LAUNCHES.n
+        v.integrate(color, depth, K, c2w)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            if ntsdf.LAUNCHES.n - n0 != 1:
+                fail(f"prep: {ntsdf.LAUNCHES.n - n0} tsdf launches for the inside frame")
+        vols[d.type] = v
+    for k, t in vols["cuda"].volume().items():
+        if not torch.equal(t.cpu(), vols["cpu"].volume()[k]):
+            fail(f"prep: the inside frame's {k} differs between the card and the host copy")
+    over = (vols["cuda"].projection_overflows, vols["cpu"].projection_overflows)
+    if over[0] != over[1] or over[0] == 0:
+        fail(f"prep: inside frame overflow counts {over} (card, host), expected equal, not 0")
+    R, t = ntsdf.world_to_camera(c2w)
+    cull = ntsdf.cull_planes(vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc,
+                             np.asarray(K, np.float32).reshape(9), R, t, *depth.shape,
+                             ntsdf.frame_depth_max(depth))
+    kept = float(ntsdf.brick_keep_mask(vol.dims, vol.origin, vol.voxel_size, cull).mean())
+    del vols
+    return over[0], kept
 
 
 def prepare_on_files(dev, card: str, files: str):
@@ -2967,9 +3052,11 @@ def prepare_on_files(dev, card: str, files: str):
         # the kernel alone, per frame, frames already on the card
         frames = []
         for (self_, color, depth, K, c2w, *_), _ms in calls:
-            frames.append((self_._upload(depth), self_._upload(color), K, c2w))
-        k_ms, updated, front = _tsdf_cost(vol, frames, dev)
-        k_ms2, _, _ = _tsdf_cost(vol, frames, dev)
+            frames.append((self_._upload(depth), self_._upload(color), K, c2w,
+                           ntsdf.frame_depth_max(depth)))
+        k_ms, updated, front, kept = _tsdf_cost(vol, frames, dev)
+        k_ms2, _, _, _ = _tsdf_cost(vol, frames, dev)
+        inside_over, inside_kept = tsdf_inside_check(vol, dev)
         host_ms = [ms for _, ms in cpu_calls]
         H, W = frames[0][0].shape
         nbytes = [u * TSDF_BYTES_PER_UPDATE + H * W * 16 for u in updated]
@@ -2989,12 +3076,19 @@ def prepare_on_files(dev, card: str, files: str):
               f"(exactly one per frame), the card's volume (tsdf, weight, r, g, b) bit-equal to "
               f"the host copy's, pkls and pc.ply ({len(xyz)} points) equal to the cpu run's; "
               f"voxels whose projection left the int range: {overflows[0]} (card), "
-              f"{overflows[1]} (host); {card}")
+              f"{overflows[1]} (host); a frame from inside the volume near its low-z face: "
+              f"one launch, bit-equal, {inside_over} voxels left the int range on both, "
+              f"the host mirror of the brick test keeps {100 * inside_kept:.1f} % of its "
+              f"bricks; {card}")
         print(f"prep tsdf_integrate: kernel median {kernel_ms:.4f} ms per frame over "
               f"{len(k_ms) * 2} launches (min {min(k_ms + k_ms2):.4f}, max "
               f"{max(k_ms + k_ms2):.4f}), {n_vox / kernel_ms / 1e6:.3f} G voxels/s; updated "
               f"voxels per frame median {statistics.median(updated)}, in front "
-              f"{statistics.median(front)}; bound {bound_ms:.5f} ms by {bound_by} (bytes "
+              f"{statistics.median(front)}, bricks the host mirror of the kernel's brick "
+              f"test keeps (a prediction from brick_keep_mask, not read from the kernel; of "
+              f"{int(np.prod([-(-int(d) // ntsdf.BRICK) for d in vol.dims]))}) median "
+              f"{100 * statistics.median(kept):.1f} % (min {100 * min(kept):.1f}, max "
+              f"{100 * max(kept):.1f}); bound {bound_ms:.5f} ms by {bound_by} (bytes "
               f"{statistics.median(nbytes) / 1e6:.3f} MB: {b_bytes:.5f} ms; operations "
               f"{statistics.median(ops) / 1e6:.1f} M at the FP32 peak: {b_ops:.5f} ms); host "
               f"copy median {statistics.median(host_ms):.2f} ms per frame (one thread, "
@@ -3112,6 +3206,7 @@ def prepare_on_files(dev, card: str, files: str):
         "plain_ms": statistics.median(host_ms), "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "launches_per": "scene (one per fused frame)",
         "voxels": n_vox, "voxels_per_s": n_vox / kernel_ms * 1e3, "peak_gib": peak,
+        "inside_frame_overflows": inside_over,
         "prep_ms": wall, "prep_stages_ms": parts, "projection_overflows": overflows[0],
         "prep_train_launches_per_step": probe.launches[-1],
         "prep_eval_launches_per_query": tprobe.launches[-1],
@@ -3496,8 +3591,10 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
                       f"{' (default)' if rows == rows_default else ''}; "
                       f"{tile_text(info(N, K, rows))}; {card}")
             k_ms = device_ms(lambda: fa.launch(**x))
+            # a cluster tile reads the f32 weights itself: no packing
+            packs = not fa.tile_cluster(rows_default, bf16)
             pack_ms = device_ms(lambda: fa.pack_agg_weights(
-                params, 3 + C, x["freqs"].numel(), dtype=x["mv_agg"].dtype))
+                params, 3 + C, x["freqs"].numel(), dtype=x["mv_agg"].dtype)) if packs else 0.0
             p_ms = device_ms(lambda: plain(**x))
         prod, other, nbytes_ = cost = agg_cost(N, K, 3 + C, W, params, x["freqs"], nbytes)
         f32_ms, b_ms, unit = agg_bounds(cost, tc)
@@ -3511,8 +3608,10 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
         tot["bound_f32_ms"] += f32_ms
         units.append((b_ms, f"K={K}: {unit}"))
         print(f"{tag} N={N} K={K}: {rows_default}-row tiles ({smem} B shared memory, "
-              f"{stages} ring stages); kernel {k_ms:.4f} ms (of which weight packing "
-              f"{pack_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} "
+              f"{stages} ring stages, clusters of {fa.tile_cluster(rows_default, bf16)}); "
+              f"kernel {k_ms:.4f} ms ("
+              f"{f'of which weight packing {pack_ms:.4f} ms' if packs else 'no weight packing'}"
+              f"), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {unit} "
               f"({100 * b_ms / k_ms:.1f} %), FP32 bound {f32_ms:.4f} ms "
               f"({prod / 1e9:.3f} GFLOP products, {other / 1e9:.3f} GFLOP other, "
               f"{nbytes_ / 1e6:.2f} MB); {card}")
@@ -3524,7 +3623,8 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
     rf32_ms, rb_ms, r_unit = agg_bounds(cost, tc)
     with torch.no_grad():
         r_ms = device_ms(lambda: fa.launch(**x), iters=5)
-        r32_ms = device_ms(lambda: fa.launch(**x, rows=32), iters=5)
+        # f32 beside its 32-row tile (bf16 has none: its wgmma tiles follow)
+        r32_ms = None if bf16 else device_ms(lambda: fa.launch(**x, rows=32), iters=5)
         for rows in (r for r in fa.tile_options(RENDER_K, bf16) if r >= fa.WGMMA_ROWS):
             t_ms = device_ms(lambda: fa.launch(**x, rows=rows), iters=5)
             print(f"{tag} render N={RENDER_N} K={RENDER_K} rows={rows}: kernel {t_ms:.4f} ms "
@@ -3536,8 +3636,8 @@ def time_fused_agg(model, cfg, dev, launches: int, max_err: float, card: str,
     if r_ms < rb_ms:
         fail(f"{tag} at the render shape reads faster than its bound ({r_ms} < {rb_ms} ms)")
     print(f"{tag} render N={RENDER_N} K={RENDER_K}: kernel {r_ms:.4f} ms "
-          f"({r_rows}-row tiles, {r_smem} B shared memory, {r_stages} ring stages; "
-          f"32-row tiles: {r32_ms:.4f} ms), "
+          f"({r_rows}-row tiles, {r_smem} B shared memory, {r_stages} ring stages"
+          f"{'' if r32_ms is None else f'; 32-row tiles: {r32_ms:.4f} ms'}), "
           f"plain {rp_ms:.4f} ms, bound {rb_ms:.4f} ms by {r_unit} "
           f"({100 * rb_ms / r_ms:.1f} %), FP32 bound {rf32_ms:.4f} ms "
           f"({cost[0] / 1e9:.1f} GFLOP products, {cost[1] / 1e9:.2f} GFLOP other, "

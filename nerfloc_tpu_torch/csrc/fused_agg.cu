@@ -61,20 +61,23 @@
 //   fc0 reads its first ceil(F/8) k-steps from the one, the rest from the
 //   other.
 //
-// The bf16 instantiation (E = __nv_bfloat16) is the Pallas kernel at
-// dt=bfloat16, which rounds to bf16 at every matrix product, bias add,
-// activation and softmax weight, and keeps the offsets, phases, softmax
-// sums and LayerNorm in f32. Here:
+// The bf16 instantiation is the Pallas kernel at dt=bfloat16, which rounds
+// to bf16 at every matrix product, bias add, activation and softmax
+// weight, and keeps the offsets, phases, softmax sums and LayerNorm in
+// f32. It runs in two kernels of its own: fused_agg_wide (tiles of 64 and
+// 128 rows) and fused_agg_cluster (16- and 32-row tiles: launches too
+// small to fill the card with wide tiles, the query's K = 1 launch among
+// them).
 // - nb_feat and mv_agg arrive in bf16 and the tile's activations stay
 //   bf16 in shared memory (half the device and shared-memory bytes of a
-//   row); the weights stream through the same 8 KB ring stages, rounded to
-//   bf16 by the wrapper (round to nearest even, as astype), two k-steps of
-//   16 a stage.
+//   row); the weights are rounded to bf16 to nearest even, as astype: by
+//   the wrapper into 8 KB ring stages of two k-steps of 16 (wide tiles), or
+//   by the cluster tiles' own threads from the f32 parameters.
 // - Every product is one bf16 MMA accumulated in f32 (where 3xTF32 spends
-//   three): wgmma m64n128k16 for tiles of 64 rows and more (the ring then
-//   holds each k-step's [16, 128] tile in the f32 wgmma layout's core
-//   matrices, 8 n-rows of 16 bytes, two k-halves 2 KB apart), mma.sync
-//   m16n8k16 for the 16- and 32-row tiles of the query shapes.
+//   three): wgmma m64n128k16 for the wide tiles (the ring then holds each
+//   k-step's [16, 128] tile in the f32 wgmma layout's core matrices, 8
+//   n-rows of 16 bytes, two k-halves 2 KB apart), mma.sync m16n8k16 for
+//   the cluster tiles.
 // - The CUDA-core phases round where the Pallas kernel does: products to
 //   bf16, then the bias added in bf16, leaky ReLU as max(x, bf16(0.01) x)
 //   in bf16, the ray-diff MLP from bf16 inputs and weights with f32 sums,
@@ -232,6 +235,8 @@ struct Args {
   int N, K, F, W, NF, RD1, RD2, T, dir_stride;
   int ks_f, ks_e, ks0p, lde, feat_elems, region, q_rows, nst, rdw_floats, off_floats;
   float q_scale;
+  int cl_ks;                         // cluster tiles: the k-steps of the products a launch runs
+  const float* wmat[kProducts];      // ... and the products' f32 weights ([in, out], fc0's rows permuted)
 };
 
 __device__ __forceinline__ float leaky(float x) { return fmaxf(x, kLeak * x); }
@@ -617,13 +622,13 @@ __device__ __forceinline__ uint32_t ld_pair_masked(const bf16* p, int c, int kv)
 
 // Ends the current block of fc0: tot = bf16(tot + bf16(acc)) (tot =
 // bf16(acc) for the first block), acc = 0. tot holds bf16 pairs.
-template <int MT>
-__device__ __forceinline__ void fold_block(float (&acc)[MT][4][4], uint32_t (&tot)[MT][4][2],
+template <int MT, int NJ = 4>
+__device__ __forceinline__ void fold_block(float (&acc)[MT][NJ][4], uint32_t (&tot)[MT][NJ][2],
                                            bool first) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float a0 = rnd<bf16>(acc[mt][j][2 * h]), a1 = rnd<bf16>(acc[mt][j][2 * h + 1]);
@@ -639,105 +644,12 @@ __device__ __forceinline__ void fold_block(float (&acc)[MT][4][4], uint32_t (&to
       }
 }
 
-// gemm() for bf16 operands: one mma.sync m16n8k16 per n-tile and k-step.
-// Warp wn's lane (g, t) = (lane / 4, lane % 4) reads the B fragments of its
-// n-tiles j = 2 h + jl (b0: k = 2t, 2t + 1; b1: k = 2t + 8, 2t + 9; n =
-// 32 wn + 8 j + g) as the 16 bytes at (wn, h) of each 4 KB k-step tile.
-// kTwo (fc0): the product is the bf16 sum of the products of its blocks
-// [feat | off | sin | cos | rdfc], each rounded to bf16, as the Pallas
-// kernel sums them (the blocks are padded to whole k-steps); acc returns it.
-template <int MT, bool kFull, bool kTwo, bool kPre = false, typename R = Ring>
-__device__ __forceinline__ void gemm_bf(float (&acc)[MT][4][4], const Operand<bf16>& x, int mt_n,
-                                        int nks, R& ring, int wn, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-  uint32_t tot[kTwo ? MT : 1][4][2];
-  int blk = 0;   // blocks folded so far
-  for (int s = 0; s < nks; s += kStageK) {
-    const unsigned char* ws = reinterpret_cast<const unsigned char*>(ring.acquire());
-#pragma unroll
-    for (int kk = 0; kk < kStageK; ++kk) {
-      const int ks = s + kk;
-      if (kTwo && ks >= x.nks_c) continue;
-      uint32_t bw[8];
-      if constexpr (kPre) {
-        // the ring holds wgmma's core-matrix layout (64-row tiles): b0 of
-        // n-tile j at (k-half 0, n-group 4 wn + j), row g, columns 2t, 2t+1
-        const uint32_t* wsw = reinterpret_cast<const uint32_t*>(ws + kk * kTileBytesB);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ng = 4 * wn + j;
-          bw[2 * j] = wsw[ng * 32 + 4 * g + t];
-          bw[2 * j + 1] = wsw[512 + ng * 32 + 4 * g + t];
-        }
-      } else {
-        const uint4* bp = reinterpret_cast<const uint4*>(ws + kk * kTileBytesB +
-                                                         wn * (kTileBytesB / kCons)) + lane;
-        const uint4 p0 = bp[0];
-        const uint4 p1 = bp[32];
-        bw[0] = p0.x; bw[1] = p0.y; bw[2] = p0.z; bw[3] = p0.w;
-        bw[4] = p1.x; bw[5] = p1.y; bw[6] = p1.z; bw[7] = p1.w;
-      }
-      const bool first = !kTwo || ks < x.nks1;
-      const bf16* base = first ? x.x1 + ks * kKStepB : x.x2 + (ks - x.nks1) * kKStepB;
-      const int ld = first ? x.ld1 : x.ld2;
-      const int kv = x.kv1 - ks * kKStepB;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if (kFull || mt < mt_n) {
-          const bf16* xr = base + (16 * mt + g) * ld + 2 * t;
-          uint32_t a[4];
-          if (kTwo && first) {
-            a[0] = ld_pair_masked(xr, 2 * t, kv);
-            a[1] = ld_pair_masked(xr + 8 * ld, 2 * t, kv);
-            a[2] = ld_pair_masked(xr + 8, 2 * t + 8, kv);
-            a[3] = ld_pair_masked(xr + 8 * ld + 8, 2 * t + 8, kv);
-          } else {
-            a[0] = ld_pair(xr);
-            a[1] = ld_pair(xr + 8 * ld);
-            a[2] = ld_pair(xr + 8);
-            a[3] = ld_pair(xr + 8 * ld + 8);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, bw[2 * j], bw[2 * j + 1]);
-        }
-      }
-      if constexpr (kTwo) {
-        const int end = blk == 0 ? x.nks1 : blk < 4 ? x.blk_end[blk - 1] : x.nks_c;
-        if (ks + 1 == end) {
-          fold_block<MT>(acc, tot, blk == 0);
-          ++blk;
-        }
-      }
-    }
-    ring.release(lane);
-  }
-  if constexpr (kTwo) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float2 tf =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[mt][j][h]));
-          acc[mt][j][2 * h] = tf.x;
-          acc[mt][j][2 * h + 1] = tf.y;
-        }
-  }
-}
-
 // store() for bf16 tiles, rounding as the Pallas kernel's mm() and its
 // callers do: the product to bf16, + bf16(bias) in bf16, * post in bf16
-// (post is a bf16 value), then leaky ReLU in bf16.
-template <int MT>
-__device__ __forceinline__ void store_bf(const float (&acc)[MT][4][4], bf16* Y, int mt_n,
+// (post is a bf16 value), then leaky ReLU in bf16. Warp wn holds the NJ
+// n-tiles of columns [8 NJ wn, 8 NJ (wn + 1)).
+template <int MT, int NJ = 4>
+__device__ __forceinline__ void store_bf(const float (&acc)[MT][NJ][4], bf16* Y, int mt_n,
                                          const float* __restrict__ bias, int nb, bool act,
                                          float post, int wn, int lane) {
   const int g = lane >> 2;
@@ -746,8 +658,8 @@ __device__ __forceinline__ void store_bf(const float (&acc)[MT][4][4], bf16* Y, 
   for (int mt = 0; mt < MT; ++mt) {
     if (mt >= mt_n) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn * 32 + j * 8 + 2 * t;
+    for (int j = 0; j < NJ; ++j) {
+      const int c = wn * 8 * NJ + j * 8 + 2 * t;
       float bx = 0.f, by = 0.f;
       if (bias != nullptr) {
         if (c < nb) bx = rnd<bf16>(__ldg(bias + c));
@@ -820,46 +732,30 @@ __device__ __forceinline__ void layer_norm(const Args& a, const E* Y, At at, con
   }
 }
 
-// Lq=1 attention over the K neighbours: one warp per (sample, head), lane =
-// dimension; the scores of 8 keys at a time are reduced together (online
-// softmax across groups of 8, the max subtracted). o overwrites q in place
-// (each lane reads its q before writing its o). In bf16 each q.k product
-// and each weight exp(s - max) is rounded to bf16 before it is used, and
-// o = bf16(sum * bf16(1 / den)); the sums stay f32. Rounded weights must
-// be taken against the max of all K scores (as the Pallas kernel does), so
-// with K > 8 the bf16 instantiation finds that max in a first pass.
-template <typename E>
-__device__ __forceinline__ void group_scores(float (&sc)[8], float qd, const E* Kt, int ldx, int K,
-                                             int t, int k0, int col) {
+// Lq=1 attention over the K neighbours (f32): one warp per (sample, head),
+// lane = dimension; the scores of 8 keys at a time are reduced together
+// (online softmax across groups of 8, the max subtracted). o overwrites q
+// in place (each lane reads its q before writing its o).
+__device__ __forceinline__ void group_scores(float (&sc)[8], float qd, const float* Kt, int ldx,
+                                             int K, int t, int k0, int col) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    sc[j] = k0 + j < K ? rnd<E>(qd * to_f(Kt[(t * K + k0 + j) * ldx + col])) : 0.f;
+  for (int j = 0; j < 8; ++j) sc[j] = k0 + j < K ? qd * Kt[(t * K + k0 + j) * ldx + col] : 0.f;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
     for (int j = 0; j < 8; ++j) sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], off);
 }
 
-template <typename E>
-__device__ __forceinline__ void attention(E* Q, const E* Kt, const E* Vt, int ldx, int K,
-                                          int t_valid, int warp, int nwarps, int lane) {
+__device__ __forceinline__ void attention(float* Q, const float* Kt, const float* Vt, int ldx,
+                                          int K, int t_valid, int warp, int nwarps, int lane) {
   for (int task = warp; task < t_valid * kHeads; task += nwarps) {
     const int t = task / kHeads;
     const int col = (task - t * kHeads) * kDk + lane;
-    const float qd = to_f(Q[t * ldx + col]);
+    const float qd = Q[t * ldx + col];
     float m = -3.402823466e38f, den = 0.f, o = 0.f;
-    if (std::is_same<E, bf16>::value && K > 8) {
-      for (int k0 = 0; k0 < K; k0 += 8) {
-        float sc[8];
-        group_scores<E>(sc, qd, Kt, ldx, K, t, k0, col);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (k0 + j < K) m = fmaxf(m, sc[j]);
-      }
-    }
     for (int k0 = 0; k0 < K; k0 += 8) {
       float sc[8];
-      group_scores<E>(sc, qd, Kt, ldx, K, t, k0, col);
+      group_scores(sc, qd, Kt, ldx, K, t, k0, col);
       float mc = m;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -872,33 +768,23 @@ __device__ __forceinline__ void attention(E* Q, const E* Kt, const E* Vt, int ld
         if (k0 + j < K) {
           const float e = expf(sc[j] - mc);
           den += e;
-          o = fmaf(rnd<E>(e), to_f(Vt[(t * K + k0 + j) * ldx + col]), o);
+          o = fmaf(e, Vt[(t * K + k0 + j) * ldx + col], o);
         }
       }
       m = mc;
     }
-    if constexpr (std::is_same<E, bf16>::value)
-      Q[t * ldx + col] = from_f<bf16>(o * rnd<bf16>(1.f / den));
-    else
-      Q[t * ldx + col] = o / den;
+    Q[t * ldx + col] = o / den;
   }
 }
 
-// One 64/32/16-row product of the chain, Y = act(X @ Wkn + bias): f32
-// wgmma for 64-row tiles and mma.sync otherwise (bf16 tiles of 64 rows and
-// more run in fused_agg_wide). in_place: Y overwrites the operand's region,
-// so every warp must have read it first.
-template <int MT, bool kTwo, typename E>
-__device__ __forceinline__ void product(const Operand<E>& x, int nks, Ring& ring, E* Y,
+// One 64/32/16-row product of the f32 chain, Y = act(X @ Wkn + bias):
+// wgmma for 64-row tiles and mma.sync otherwise. in_place: Y overwrites the
+// operand's region, so every warp must have read it first.
+template <int MT, bool kTwo>
+__device__ __forceinline__ void product(const Operand<float>& x, int nks, Ring& ring, float* Y,
                                         const float* bias, int nb, bool act, bool in_place,
                                         int warp, int lane) {
-  static_assert(!(std::is_same<E, bf16>::value && MT == 4), "bf16 64-row tiles are wide tiles");
-  if constexpr (std::is_same<E, bf16>::value) {
-    float acc[MT][4][4];
-    gemm_bf<MT, true, kTwo>(acc, x, MT, nks, ring, warp, lane);
-    if (in_place) bar_consumers(kConsThreads);
-    store_bf<MT>(acc, Y, MT, bias, nb, act, 1.f, warp, lane);
-  } else if constexpr (MT == 4) {
+  if constexpr (MT == 4) {
     float d[64];
     gemm_wg<kTwo>(d, x, nks, ring, warp, lane);
     if (in_place) bar_consumers(kConsThreads);
@@ -937,9 +823,11 @@ __device__ void produce(const Args& a, float* ring_buf, uint64_t* full, uint64_t
   }
 }
 
-template <int MT, typename E>
+// The f32 instantiation at 16/32/64-row tiles (bf16 launches run the
+// cluster and wide tiles).
+template <int MT>
 __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Args a) {
-  constexpr bool kBf = std::is_same<E, bf16>::value;
+  using E = float;
   constexpr int kRows = 16 * MT;           // rows (= T*K, padded) of one CTA
   constexpr bool kWgmma = MT == 4;          // 64-row tiles: wgmma products
   constexpr int kDep = Elem<E>::kDep;       // MMA depth
@@ -955,8 +843,7 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   E* MV = FEAT + a.region;                                            // [q_rows, kLd] (K > 1)
   E* Q = MV + a.q_rows * kLd;                                         // [q_rows, kLd] (K > 1)
   float* RDW = reinterpret_cast<float*>(Q + a.q_rows * kLd);          // ray-diff MLP weights
-  float* OFF = RDW + a.rdw_floats;                                    // [kRows, 4] f32 offsets (bf16)
-  uint64_t* full = reinterpret_cast<uint64_t*>(OFF + a.off_floats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(RDW + a.rdw_floats);
   uint64_t* empty = full + kMaxStages;
   uint64_t* feat_bar = empty + kMaxStages;
 
@@ -973,18 +860,17 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   }
   __syncthreads();
   if (warp == kCons) {
-    if (lane == 0) produce<(kWgmma && !kBf) ? 1 : kStageK, kDep>(a, ring_buf, full, empty);
+    if (lane == 0) produce<kWgmma ? 1 : kStageK, kDep>(a, ring_buf, full, empty);
     return;
   }
 
   const int n0 = blockIdx.x * T;
   const int t_valid = min(T, a.N - n0);
   const int rows_valid = t_valid * K;
-  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0]; in bf16 each
-  // block starts on a whole k-step (zeros between), for fc0's block sums
+  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0]
   const int off_col = 0;
-  const int sin_col = kBf ? kKStepB : 3;
-  const int trig = kBf ? (3 * NF + kKStepB - 1) / kKStepB * kKStepB : 3 * NF;
+  const int sin_col = 3;
+  const int trig = 3 * NF;
   const int cos_col = sin_col + trig;
   const int rd_col = cos_col + trig;
   const int emb_end = rd_col + RD2;
@@ -1009,7 +895,7 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   if (tid < nfeat - head - body) FX[head + body + tid] = feat[head + body + tid];
   for (int i = nfeat + tid; i < kRows * F + kDep; i += kConsThreads) FX[i] = from_f<E>(0.f);
   for (int r = warp; r < kRows; r += kCons)
-    for (int c = (kBf ? 0 : emb_end) + lane; c < kDep * a.ks_e; c += 32)
+    for (int c = emb_end + lane; c < kDep * a.ks_e; c += 32)
       EMB[r * lde + c] = from_f<E>(0.f);
   // ray-diff MLP weights [rd_w1 | rd_b1 | rd_w2 | rd_b2] (f32), then mv:
   // cp.async (copies through registers would wait for device memory one by one)
@@ -1067,26 +953,12 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
     }
     E* er = EMB + r * lde;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) er[off_col + d] = from_f<E>(off[d]);
-    if constexpr (kBf) {
-      // bf16 inputs and weights, f32 sums, then bf16(product) + bf16(bias)
+    for (int d = 0; d < 3; ++d) er[off_col + d] = off[d];
+    for (int m = 0; m < RD1; ++m) {
+      float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) OFF[r * 4 + d] = off[d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) rdiff[i] = rnd<bf16>(rdiff[i]);
-      for (int m = 0; m < RD1; ++m) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], rnd<bf16>(w1s[i * RD1 + m]), s);
-        er[sin_col + m] = from_f<E>(leaky_b(rnd<bf16>(rnd<bf16>(s) + rnd<bf16>(b1s[m]))));
-      }
-    } else {
-      for (int m = 0; m < RD1; ++m) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], w1s[i * RD1 + m], s);
-        er[sin_col + m] = leaky(s + b1s[m]);
-      }
+      for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], w1s[i * RD1 + m], s);
+      er[sin_col + m] = leaky(s + b1s[m]);
     }
   }
   bar_consumers(kConsThreads);
@@ -1095,24 +967,15 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   {
     float w2c[kMaxRd];
 #pragma unroll
-    for (int m = 0; m < kMaxRd; ++m) {
-      const float w = (m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f;
-      w2c[m] = kBf ? rnd<bf16>(w) : w;
-    }
+    for (int m = 0; m < kMaxRd; ++m) w2c[m] = (m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f;
     const float b2c = lane < RD2 ? b2s[lane] : 0.f;
     for (int r = warp; r < kRows; r += kCons) {
       const E* h = EMB + r * lde + sin_col;
-      float s = kBf ? 0.f : b2c;
+      float s = b2c;
 #pragma unroll
       for (int m = 0; m < kMaxRd; ++m)
-        if (m < RD1) s = fmaf(to_f(h[m]), w2c[m], s);
-      if (lane < RD2) {
-        if constexpr (kBf)
-          EMB[r * lde + rd_col + lane] =
-              from_f<E>(leaky_b(rnd<bf16>(rnd<bf16>(s) + rnd<bf16>(b2c))));
-        else
-          EMB[r * lde + rd_col + lane] = leaky(s);
-      }
+        if (m < RD1) s = fmaf(h[m], w2c[m], s);
+      if (lane < RD2) EMB[r * lde + rd_col + lane] = leaky(s);
     }
   }
   bar_consumers(kConsThreads);
@@ -1121,10 +984,9 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
     E* er = EMB + r * lde;
     for (int j = lane; j < 3 * NF; j += 32) {
       float sn, cs;
-      const float o = kBf ? OFF[r * 4 + j % 3] : to_f(er[off_col + j % 3]);
-      sincosf(o * __ldg(a.freqs + j / 3), &sn, &cs);
-      er[sin_col + j] = from_f<E>(sn);
-      er[cos_col + j] = from_f<E>(cs);
+      sincosf(er[off_col + j % 3] * __ldg(a.freqs + j / 3), &sn, &cs);
+      er[sin_col + j] = sn;
+      er[cos_col + j] = cs;
     }
   }
   cp_async_wait<0>();
@@ -1139,9 +1001,7 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   const Operand<E> opB = tile_operand(static_cast<const E*>(B), kLd);
   constexpr int kKs = kHd / kDep;
   Ring ring{ring_buf, full, empty, a.nst, 0, 0u};
-  const int ks_trig = trig / kDep;   // k-steps of the sin (and cos) block, bf16
-  const Operand<E> x_in{FX, F, F, a.ks_f, EMB, lde, a.ks_f + a.ks_e,
-                        {a.ks_f + 1, a.ks_f + 1 + ks_trig, a.ks_f + 1 + 2 * ks_trig}};
+  const Operand<E> x_in{FX, F, F, a.ks_f, EMB, lde, a.ks_f + a.ks_e, {0, 0, 0}};
   product<MT, true>(x_in, a.ks0p, ring, A, a.b0, W, true, true, warp, lane);
   bar_consumers(kConsThreads);
   product<MT, false>(opA, kKs, ring, B, a.b1, W, true, false, warp, lane);
@@ -1164,33 +1024,20 @@ __global__ void __launch_bounds__((kCons + 1) * 32, 2) fused_agg_kernel(const Ar
   product<MT, false>(opA, kKs, ring, A, nullptr, 0, false, true, warp, lane);  // k
   float acc[MT][4][4];
   const int mt_q = a.q_rows / 16;
-  if constexpr (kBf) {
-    gemm_bf<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(MV), kLd), mt_q,
-                                      kKs, ring, warp, lane);
-    store_bf<MT>(acc, Q, mt_q, nullptr, 0, false, rnd<bf16>(a.q_scale), warp, lane);
-  } else {
-    gemm<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(MV), kLd), mt_q, kKs,
-                                   ring, warp, lane);
-    store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, a.q_scale, warp, lane);
-  }
+  gemm<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(MV), kLd), mt_q, kKs,
+                                 ring, warp, lane);
+  store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, a.q_scale, warp, lane);
   bar_consumers(kConsThreads);
 
   // 7. Lq=1 attention over the K neighbours
-  attention<E>(Q, A, B, kLd, K, t_valid, warp, kCons, lane);
+  attention(Q, A, B, kLd, K, t_valid, warp, kCons, lane);
   bar_consumers(kConsThreads);
 
   // 8. output projection, residual and LayerNorm
-  if constexpr (kBf)
-    gemm_bf<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(Q), kLd), mt_q,
-                                      kKs, ring, warp, lane);
-  else
-    gemm<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(Q), kLd), mt_q, kKs,
-                                   ring, warp, lane);
+  gemm<MT, false, false, kWgmma>(acc, tile_operand(static_cast<const E*>(Q), kLd), mt_q, kKs,
+                                 ring, warp, lane);
   bar_consumers(kConsThreads);   // every warp has read o
-  if constexpr (kBf)
-    store_bf<MT>(acc, Q, mt_q, nullptr, 0, false, 1.f, warp, lane);
-  else
-    store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, 1.f, warp, lane);
+  store<MT>(acc, Q, kLdh, mt_q, nullptr, 0, false, 1.f, warp, lane);
   bar_consumers(kConsThreads);
   layer_norm(a, Q, RowMajor{kLd}, MV, kLd, n0, t_valid, warp, kCons, lane);
 }
@@ -1310,6 +1157,54 @@ struct WideRing {
   }
 };
 
+// The 16-row q and o products of the wide tiles (gemm() for bf16
+// operands): acc[mt] = X[16 mt .. +16, :] @ Wkn[:, 32 wn .. 32 wn + 32] for
+// mt < mt_n, one mma.sync m16n8k16 per n-tile and k-step, the weights
+// streamed through the wide ring (wgmma's core-matrix layout): b0 of n-tile
+// j at (k-half 0, n-group 4 wn + j), row g, columns 2t, 2t + 1; b1 at k-half 1.
+template <int MT>
+__device__ __forceinline__ void gemm_bf(float (&acc)[MT][4][4], const Operand<bf16>& x, int mt_n,
+                                        int nks, WideRing& ring, int wn, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  for (int s = 0; s < nks; s += kStageK) {
+    const unsigned char* ws = reinterpret_cast<const unsigned char*>(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < kStageK; ++kk) {
+      const int ks = s + kk;
+      uint32_t bw[8];
+      const uint32_t* wsw = reinterpret_cast<const uint32_t*>(ws + kk * kTileBytesB);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ng = 4 * wn + j;
+        bw[2 * j] = wsw[ng * 32 + 4 * g + t];
+        bw[2 * j + 1] = wsw[512 + ng * 32 + 4 * g + t];
+      }
+      const bf16* base = x.x1 + ks * kKStepB;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mt < mt_n) {
+          const bf16* xr = base + (16 * mt + g) * x.ld1 + 2 * t;
+          uint32_t a[4];
+          a[0] = ld_pair(xr);
+          a[1] = ld_pair(xr + 8 * x.ld1);
+          a[2] = ld_pair(xr + 8);
+          a[3] = ld_pair(xr + 8 * x.ld1 + 8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, bw[2 * j], bw[2 * j + 1]);
+        }
+      }
+    }
+    ring.release(lane);
+  }
+}
+
 // The A operand of a wide product: the CoreTile `tile` (a descriptor per
 // k-step), of which nks_c k-steps are computed. Bit ks of fold is set where
 // one of fc0's blocks ends after k-step ks (a mask, so that the test is
@@ -1362,7 +1257,7 @@ __device__ __forceinline__ void fold_wide(float (&d)[64], uint32_t (&tot)[32], b
 // back and committed once; a stage is waited for (wait_group 1) only once
 // the next one is issued, then its slot is released; fc0's block ends wait
 // in full. kTwo (fc0): the product is the bf16 sum of its blocks'
-// products, each rounded, as in gemm_bf.
+// products, each rounded, as in gemm_cl.
 template <bool kTwo>
 __device__ __forceinline__ void gemm_wide(float (&d)[64], const WideOperand& x, int nks,
                                           WideRing& ring, int ww, int lane) {
@@ -1877,7 +1772,7 @@ __global__ void __launch_bounds__(NWG * kWgThreads, 4 / NWG) fused_agg_wide(cons
   bar_wg(wg);
   float acc[4][4][4];
   const int mt_q = a.q_rows / 16;
-  gemm_bf<4, false, false, true>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
+  gemm_bf<4>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
                                  ring, ww, lane);
   bar_wg(wg);   // every warp has read mv
   store_bf<4>(acc, Q, mt_q, nullptr, 0, false, rnd<bf16>(a.q_scale), ww, lane);
@@ -1888,7 +1783,7 @@ __global__ void __launch_bounds__(NWG * kWgThreads, 4 / NWG) fused_agg_wide(cons
   bar_wg(wg);
 
   // 8. output projection, residual and LayerNorm
-  gemm_bf<4, false, false, true>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
+  gemm_bf<4>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
                                  ring, ww, lane);
   bar_wg(wg);   // every warp has read o
   store_bf<4>(acc, Q, mt_q, nullptr, 0, false, 1.f, ww, lane);
@@ -1896,41 +1791,570 @@ __global__ void __launch_bounds__(NWG * kWgThreads, 4 / NWG) fused_agg_wide(cons
   layer_norm(a, Q, RowMajor{kLdhB}, mv0, W, n0, t_valid, ww, kWgWarps, lane);
 }
 
+// ---- bf16 cluster tiles: launches too small for the wide tiles ------------
+//
+// A launch of a few thousand rows (the query's K = 1 launch over N = 1024
+// keypoints; small K > 1 launches) fills the card with wide tiles only at
+// a CTA an SM or less, and a wide CTA's chain (~0.047 ms) then sets the
+// launch's time. The old 16/32-row CTAs each streamed every weight
+// through a ring from a buffer the wrapper packed first (three small
+// kernels, ~0.011 ms a launch). Here a thread-block cluster of
+// kClusterCtas CTAs holds the weights once, resident: CTA c keeps the
+// 32-column block c of every product's k-steps, rounded to bf16 by its own
+// threads from the f32 parameters while the prologue's copies are in
+// flight (load_share), so the wrapper packs nothing. Each CTA owns its own
+// 16 or 32 rows (whole samples) and computes every column of them, so no
+// activation leaves the CTA: its 8 warps own 16 output columns each and
+// read their B fragments, 16 bytes a lane in the ring's layout, from the
+// CTA that holds them through distributed shared memory
+// (ld.shared::cluster, kClPf k-steps in flight; a 32-row CTA reuses each
+// fragment for both m-tiles). One cluster barrier once every CTA's share
+// is in place, one before a CTA leaves. The prologue spreads a row over
+// 256 / rows threads with its geometry loads in flight across the set-up,
+// the attention runs a warp a sample, and the LayerNorm's residual is
+// staged in shared memory. The rounding is kernel_agg's (products to
+// bf16, fc0's five block sums, the softmax weights), with f32 sums in
+// another order.
+// Measured on the card (PERF.md, tools/compare_fused_agg.py): a launch
+// runs fastest while its clusters hold at most ~120 CTAs, about one an SM
+// (16 rows at K = 1 and N = 1024, 1.31x the old 16-row tile; 32 rows at
+// K = 8 and N = 256 or 384, 1.04-1.07x the old tiles). At 128 CTAs a few
+// SMs take two, and a CTA shares its SM at ~1.5x the time, so the old
+// tiles, cheap enough to run two an SM, stay ahead there (K = 8 and N =
+// 512: 0.85x); from ~1.5 CTAs an SM the wide tiles take over
+// (ops/fused_agg.py, tile_plan). Measured and dropped: tiles fed from the packed buffer,
+// clusters of 2, and clusters sharing one ring whose stages are multicast
+// to every CTA (TMA .multicast::cluster; each slot's release by every CTA
+// set the pace).
+constexpr int kClusterCtas = 4;      // CTAs a cluster (clusters of 2 measured slower)
+constexpr uint32_t kClChunk = kTileBytesB / kClusterCtas;   // bytes a CTA holds of a k-step
+constexpr int kClWarps = 8;
+constexpr int kClThreads = kClWarps * 32;
+constexpr int kClNj = 2;             // n-tiles of 8 columns a warp holds: 16 columns
+constexpr int kClHeader = 128;       // bytes of a cluster CTA's barriers
+constexpr int kClPf = 8;             // k-steps of weights in flight a warp
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of p (a shared variable of this CTA) in CTA rank
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ uint4 ld_cluster(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// every thread of the cluster's CTAs: what each wrote before is visible to
+// all after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// This CTA's share of the weights (its cluster rank's 32-column block),
+// rounded to bf16 from the f32 parameters as pack_agg_weights rounds them
+// (to nearest even) and placed as it places them: k-step ks of the share
+// (the products in the ring's order, the key and query products only with
+// K > 1) holds, for half jh, lane (g, t)'s 16 bytes at 512 jh + 16 lane:
+// b0 and b1 of n-tiles jl = 0, 1, n = 32 rank + 16 jh + 8 jl + g, k = 16 kp + 2t (+1; +8, +9) of the product's
+// padded k (fc0's rows as ring_widths pads them, zero where no weight is).
+// A warp a (k-step, block, half), kBatch of them with their loads in
+// flight. (Spreading the rounds over the prologue's steps, so that their
+// latency would hide behind it, was measured slower: the prologue's own
+// loads queued behind them.)
+__device__ void load_share(const Args& a, unsigned char* WS, uint32_t rank, int warp, int lane) {
+  constexpr int kBatch = 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int F = a.F, W = a.W, NF = a.NF;
+  const int fp = kKStepB * a.ks_f;                         // fc0's first embedding row
+  const int trig = (3 * NF + kKStepB - 1) / kKStepB * kKStepB;
+  const int tasks = a.cl_ks * 2;
+  for (int i0 = warp * kBatch; i0 < tasks; i0 += kClWarps * kBatch) {
+    float v[kBatch][8];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b;
+      const int ks = i / 2;
+      const int jh = i - ks * 2;
+      // the product and its k-step
+      int p = kFc0, kp = ks;
+      if (ks >= a.ks0p) {
+        const int q = (ks - a.ks0p) / (kHd / kKStepB);
+        kp = ks - a.ks0p - q * (kHd / kKStepB);
+        p = a.K > 1 ? kFc1 + q : (q < 3 ? kFc1 + q : kWfc);
+      }
+      const int cols = (p == kWv || p == kWk || p == kWq) ? kHd : W;
+      const float* src = a.wmat[p];
+      const int n0 = 32 * static_cast<int>(rank) + 16 * jh + g;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = kKStepB * kp + 2 * t + (e & 1) + 8 * (e >> 1);
+        int row = k;
+        if (p == kFc0) {   // fc0's padded k -> the parameter's row
+          const int c = k - fp;
+          row = k < fp ? (k < F ? k : -1)
+                : c < 3 ? F + c
+                : c >= kKStepB && c < kKStepB + 3 * NF ? F + 3 + c - kKStepB
+                : c >= kKStepB + trig && c < kKStepB + trig + 3 * NF ? F + 3 + 3 * NF + c - kKStepB - trig
+                : c >= kKStepB + 2 * trig && c < kKStepB + 2 * trig + a.RD2
+                    ? F + 3 + 6 * NF + c - kKStepB - 2 * trig
+                    : -1;
+        } else if (k >= (p == kWfc ? kHd : W)) {
+          row = -1;
+        }
+        const bool ok = i < tasks && row >= 0;
+        v[b][e] = ok && n0 < cols ? __ldg(src + static_cast<size_t>(row) * cols + n0) : 0.f;
+        v[b][4 + e] = ok && n0 + 8 < cols ? __ldg(src + static_cast<size_t>(row) * cols + n0 + 8) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b;
+      if (i >= tasks) break;
+      const int ks = i / 2;
+      const int jh = i - ks * 2;
+      const uint4 w = make_uint4(bf2_bits(__floats2bfloat162_rn(v[b][0], v[b][1])),
+                                 bf2_bits(__floats2bfloat162_rn(v[b][2], v[b][3])),
+                                 bf2_bits(__floats2bfloat162_rn(v[b][4], v[b][5])),
+                                 bf2_bits(__floats2bfloat162_rn(v[b][6], v[b][7])));
+      *reinterpret_cast<uint4*>(WS + ks * kClChunk + jh * 512 + lane * 16) = w;
+    }
+  }
+}
+
+// acc = X[16 mt .. +16, :] @ Wkn[:, 16 w .. 16 w + 16] for mt < mt_n (all
+// MT when kFull), nks k-steps, k-step ks of this warp's weights at the
+// cluster address wsrc + ks * kClChunk (16 bytes a lane: b0 and b1 of its
+// two n-tiles). kTwo (fc0): the product is the bf16 sum of the products of
+// its blocks [feat | off | sin | cos | rdfc], each rounded to bf16, as the
+// Pallas kernel sums them (the blocks are padded to whole k-steps).
+template <int MT, bool kFull, bool kTwo>
+__device__ __forceinline__ void gemm_cl(float (&acc)[MT][kClNj][4], const Operand<bf16>& x,
+                                        int mt_n, int nks, uint32_t wsrc, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kClNj; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  uint32_t tot[kTwo ? MT : 1][kClNj][2];
+  int blk = 0;   // blocks folded so far
+  uint4 bq[kClPf];
+#pragma unroll
+  for (int i = 0; i < kClPf; ++i)
+    if (i < nks) bq[i] = ld_cluster(wsrc + i * kClChunk);
+  for (int s = 0; s < nks; s += kClPf) {
+#pragma unroll
+    for (int i = 0; i < kClPf; ++i) {
+      const int ks = s + i;
+      if (ks < nks) {
+        const uint4 bw = bq[i];
+        if (ks + kClPf < nks) bq[i] = ld_cluster(wsrc + (ks + kClPf) * kClChunk);
+        const bool first = !kTwo || ks < x.nks1;
+        const bf16* base = first ? x.x1 + ks * kKStepB : x.x2 + (ks - x.nks1) * kKStepB;
+        const int ld = first ? x.ld1 : x.ld2;
+        const int kv = x.kv1 - ks * kKStepB;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (kFull || mt < mt_n) {
+            const bf16* xr = base + (16 * mt + g) * ld + 2 * t;
+            uint32_t a[4];
+            if (kTwo && first) {
+              a[0] = ld_pair_masked(xr, 2 * t, kv);
+              a[1] = ld_pair_masked(xr + 8 * ld, 2 * t, kv);
+              a[2] = ld_pair_masked(xr + 8, 2 * t + 8, kv);
+              a[3] = ld_pair_masked(xr + 8 * ld + 8, 2 * t + 8, kv);
+            } else {
+              a[0] = ld_pair(xr);
+              a[1] = ld_pair(xr + 8 * ld);
+              a[2] = ld_pair(xr + 8);
+              a[3] = ld_pair(xr + 8 * ld + 8);
+            }
+            mma_bf16(acc[mt][0], a, bw.x, bw.y);
+            mma_bf16(acc[mt][1], a, bw.z, bw.w);
+          }
+        }
+        if constexpr (kTwo) {
+          const int end = blk == 0 ? x.nks1 : blk < 4 ? x.blk_end[blk - 1] : x.nks_c;
+          if (ks + 1 == end) {
+            fold_block<MT, kClNj>(acc, tot, blk == 0);
+            ++blk;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kTwo) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kClNj; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 tf =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tot[mt][j][h]));
+          acc[mt][j][2 * h] = tf.x;
+          acc[mt][j][2 * h + 1] = tf.y;
+        }
+  }
+}
+
+// One product of a cluster tile, Y = act(X @ Wkn + bias) over all MT
+// m-tiles; in_place: Y overwrites the operand's region, so every warp must
+// have read it first.
+template <int MT, bool kTwo>
+__device__ __forceinline__ void product_cl(const Operand<bf16>& x, int nks, uint32_t wsrc,
+                                           bf16* Y, const float* bias, int nb, bool act,
+                                           bool in_place, int warp, int lane) {
+  float acc[MT][kClNj][4];
+  gemm_cl<MT, true, kTwo>(acc, x, MT, nks, wsrc, lane);
+  if (in_place) __syncthreads();
+  store_bf<MT, kClNj>(acc, Y, MT, bias, nb, act, 1.f, warp, lane);
+}
+
+// q . k of one key over a lane's 4 dimensions of its head, each product
+// rounded to bf16 (as attention<bf16> rounds it), then summed over the 8
+// lanes of the head (an xor butterfly: every lane gets the same sum)
+__device__ __forceinline__ float head_score_cl(uint2 q, const bf16* krow) {
+  const uint2 kw = *reinterpret_cast<const uint2*>(krow);
+  const uint32_t p0 = bf2_bits(__floats2bfloat162_rn(lo_f(q.x) * lo_f(kw.x), hi_f(q.x) * hi_f(kw.x)));
+  const uint32_t p1 = bf2_bits(__floats2bfloat162_rn(lo_f(q.y) * lo_f(kw.y), hi_f(q.y) * hi_f(kw.y)));
+  float s = (lo_f(p0) + hi_f(p0)) + (lo_f(p1) + hi_f(p1));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// Lq=1 attention of the cluster tiles, rounding as attention<bf16>: one
+// warp a sample, lane (h, d) = (lane / 8, lane % 8) holding dimensions
+// 4d .. 4d + 3 of head h; the max of all K scores first, then exp(s - max)
+// summed in f32 and rounded before it meets v, o = bf16(sum * bf16(1 /
+// den)) written over q. A warp reads one 256-byte row of K or V at a time.
+__device__ __forceinline__ void attention_cl(bf16* Q, const bf16* Kt, const bf16* Vt, int K,
+                                             int t_valid, int warp, int lane) {
+  const int col = (lane >> 3) * kDk + 4 * (lane & 7);
+  for (int t = warp; t < t_valid; t += kClWarps) {
+    const uint2 q = *reinterpret_cast<const uint2*>(Q + t * kLdhB + col);
+    const bf16* krow = Kt + t * K * kLdhB + col;
+    float m = -3.402823466e38f;
+    for (int k = 0; k < K; ++k) m = fmaxf(m, head_score_cl(q, krow + k * kLdhB));
+    float den = 0.f;
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < K; ++k) {
+      const float e = expf(head_score_cl(q, krow + k * kLdhB) - m);
+      den += e;
+      const float w = rnd<bf16>(e);
+      const uint2 vw = *reinterpret_cast<const uint2*>(Vt + (t * K + k) * kLdhB + col);
+      o[0] = fmaf(w, lo_f(vw.x), o[0]);
+      o[1] = fmaf(w, hi_f(vw.x), o[1]);
+      o[2] = fmaf(w, lo_f(vw.y), o[2]);
+      o[3] = fmaf(w, hi_f(vw.y), o[3]);
+    }
+    const float r = rnd<bf16>(1.f / den);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Q + t * kLdhB + col);
+    dst[0] = __floats2bfloat162_rn(o[0] * r, o[1] * r);
+    dst[1] = __floats2bfloat162_rn(o[2] * r, o[3] * r);
+  }
+}
+
+// The bf16 instantiation at cluster tiles of 16 MT rows (T samples a CTA,
+// CTA b holding samples [b T, b T + T)), kClusterCtas CTAs a cluster
+// sharing the weights; see the note above. The prologue: the geometry loads in flight
+// across the set-up, 256 / rows threads a row for the ray-diff MLP's hidden
+// layer, up to four rows at a time a warp for its output layer.
+template <int MT>
+__global__ void __launch_bounds__(kClThreads, 2) fused_agg_cluster(const Args a) {
+  static_assert(MT == 1 || MT == 2, "cluster tiles hold 16 or 32 rows");
+  constexpr int kRows = 16 * MT;
+  constexpr int kParts = kClThreads / kRows;    // threads a row in the hidden layer
+  constexpr int kKs = kHd / kKStepB;
+  extern __shared__ __align__(128) float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const int K = a.K, F = a.F, W = a.W, T = a.T, NF = a.NF, lde = a.lde;
+  const int RD1 = a.RD1, RD2 = a.RD2;
+
+  uint64_t* fbar = reinterpret_cast<uint64_t*>(base);
+  unsigned char* WS = base + kClHeader;                                // [cl_ks, kClChunk]
+  bf16* FEAT = reinterpret_cast<bf16*>(WS + a.cl_ks * kClChunk);         // [kRows, F] + pad; later A | B
+  bf16* EMB = FEAT + a.feat_elems;                                     // [kRows, lde]
+  bf16* MV = FEAT + a.region;                                          // [q_rows, kLdhB]
+  bf16* Q = MV + a.q_rows * kLdhB;                                     // [q_rows, kLdhB] (K > 1)
+  float* RDW = reinterpret_cast<float*>(Q + a.q_rows * kLdhB);         // ray-diff MLP weights
+  float* OFF = RDW + a.rdw_floats;                                     // [kRows, 4] f32 offsets
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.x * T;
+  const int t_valid = max(0, min(T, a.N - n0));   // CTAs past N only hold weights
+  const int rows_valid = t_valid * K;
+
+  // the geometry of row gr, its loads in flight across the set-up
+  const int gr = tid % kRows;
+  float off[3] = {0.f, 0.f, 0.f};
+  float rdiff[4] = {0.f, 0.f, 0.f, 0.f};
+  if (gr < rows_valid) {
+    const int tt = gr / K;
+    const int n = n0 + tt;
+    const size_t nk = static_cast<size_t>(n) * K + (gr - tt * K);
+    const float sc = __ldg(a.scale);
+    float d3[3], nb[3], diff[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      off[d] = (a.xyz[static_cast<size_t>(n) * 3 + d] - a.nb_xyz[nk * 3 + d]) / sc;
+      d3[d] = a.dir[static_cast<size_t>(n) * a.dir_stride + d];
+      nb[d] = a.nb_dir[nk * 4 + d];
+      diff[d] = d3[d] - nb[d];
+    }
+    const float ss = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+    const float den = fmaxf(sqrtf(ss + 1e-12f), 1e-6f);
+    rdiff[0] = diff[0] / den;
+    rdiff[1] = diff[1] / den;
+    rdiff[2] = diff[2] / den;
+    rdiff[3] = d3[0] * nb[0] + d3[1] * nb[1] + d3[2] * nb[2];
+  }
+
+  // 1. the tile's neighbour features by bulk copy: the 16-byte-aligned
+  //    body, the < 16 bytes at either end by hand, zeros after the valid
+  //    rows; the embedding zeroed; then, with the copies in flight, this
+  //    CTA's share of the weights
+  const bf16* feat = static_cast<const bf16*>(a.nb_feat) + static_cast<size_t>(n0) * K * F;
+  const int nfeat = rows_valid * F;
+  const int head = min(static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(feat) & 15)) & 15) /
+                                        sizeof(bf16)),
+                       nfeat);
+  const int body = (nfeat - head) & ~7;
+  bf16* FX = FEAT + ((8 - head) & 7);
+  if (tid == 0) {
+    mbar_init(fbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(fbar, body * sizeof(bf16));
+    if (body > 0) bulk_load(FX + head, feat + head, body * sizeof(bf16), fbar);
+  }
+  __syncthreads();
+  if (tid < head) FX[tid] = feat[tid];
+  if (tid < nfeat - head - body) FX[head + body + tid] = feat[head + body + tid];
+  for (int i = nfeat + tid; i < kRows * F + kKStepB; i += kClThreads) FX[i] = from_f<bf16>(0.f);
+  for (int i = tid; i < kRows * lde / 8; i += kClThreads)
+    reinterpret_cast<uint4*>(EMB)[i] = make_uint4(0u, 0u, 0u, 0u);
+  // ray-diff MLP weights [rd_w1 | rd_b1 | rd_w2 | rd_b2] (f32), then mv
+  float* w1s = RDW;
+  float* b1s = w1s + 4 * RD1;
+  float* w2s = b1s + RD1;
+  float* b2s = w2s + RD1 * RD2;
+  for (int i = tid; i < 4 * RD1; i += kClThreads) cp_async4(w1s + i, a.rd_w1 + i);
+  for (int i = tid; i < RD1; i += kClThreads) cp_async4(b1s + i, a.rd_b1 + i);
+  for (int i = tid; i < RD1 * RD2; i += kClThreads) cp_async4(w2s + i, a.rd_w2 + i);
+  for (int i = tid; i < RD2; i += kClThreads) cp_async4(b2s + i, a.rd_b2 + i);
+  cp_async_commit();
+  const bf16* mv = static_cast<const bf16*>(a.mv);
+  for (int t = warp; t < a.q_rows; t += kClWarps) {
+    const bf16* mr = mv + static_cast<size_t>(n0 + t) * W;
+    for (int c = 2 * lane; c < kHd; c += 64) {
+      if (t < t_valid && c < W) {
+        cp_async4(MV + t * kLdhB + c, mr + c);
+      } else {
+        MV[t * kLdhB + c] = from_f<bf16>(0.f);
+        MV[t * kLdhB + c + 1] = from_f<bf16>(0.f);
+      }
+    }
+  }
+  cp_async_commit();
+  load_share(a, WS, cluster_rank(), warp, lane);
+  cp_async_wait<1>();   // the MLP weights; mv may still be in flight
+  __syncthreads();
+
+  // EMB row: [off(3) | sin(3NF) | cos(3NF) | rdfc(RD2) | 0], each block on
+  // a whole k-step (zeros between), for fc0's block sums
+  const int sin_col = kKStepB;
+  const int trig = (3 * NF + kKStepB - 1) / kKStepB * kKStepB;
+  const int cos_col = sin_col + trig;
+  const int rd_col = cos_col + trig;
+  // 2. kParts threads a row: the offsets and rdiff (computed above), their
+  //    share of the ray-diff MLP's hidden layer h, parked in the row's sin
+  //    columns (RD1 <= 2 trig) until the embedding is written
+  {
+    const int part = tid / kRows;
+    bf16* er = EMB + gr * lde;
+    if (part == 0) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        er[d] = from_f<bf16>(off[d]);
+        OFF[gr * 4 + d] = off[d];
+      }
+    }
+    // bf16 inputs and weights, f32 sums, then bf16(product) + bf16(bias)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rdiff[i] = rnd<bf16>(rdiff[i]);
+    const int mh = (RD1 + kParts - 1) / kParts;
+    for (int m = part * mh; m < min(RD1, (part + 1) * mh); ++m) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s = fmaf(rdiff[i], rnd<bf16>(w1s[i * RD1 + m]), s);
+      er[sin_col + m] = from_f<bf16>(leaky_b(rnd<bf16>(rnd<bf16>(s) + rnd<bf16>(b1s[m]))));
+    }
+  }
+  __syncthreads();
+  // 3. the ray-diff MLP's output layer: one warp a row, four rows at a time
+  //    (rows r, r + 8, r + 16, r + 24), lane n < RD2 holding column n of
+  //    rd_w2 in registers (zero from RD1 on, where the sin block holds zeros)
+  {
+    float w2c[kMaxRd];
+#pragma unroll
+    for (int m = 0; m < kMaxRd; ++m)
+      w2c[m] = rnd<bf16>((m < RD1 && lane < RD2) ? w2s[m * RD2 + lane] : 0.f);
+    const float b2c = rnd<bf16>(lane < RD2 ? b2s[lane] : 0.f);
+    const int chunks = (RD1 + 7) / 8;
+    constexpr int kAtOnce = kRows / kClWarps < 4 ? kRows / kClWarps : 4;
+    for (int r = warp; r < kRows; r += kAtOnce * kClWarps) {
+      float s[kAtOnce];
+#pragma unroll
+      for (int u = 0; u < kAtOnce; ++u) s[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxRd / 8; ++i) {
+        if (i >= chunks) break;
+#pragma unroll
+        for (int u = 0; u < kAtOnce; ++u) {
+          uint32_t hw[4];
+          words(*reinterpret_cast<const uint4*>(EMB + (r + u * kClWarps) * lde + sin_col + 8 * i),
+                hw);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[u] = fmaf(lo_f(hw[e]), w2c[8 * i + 2 * e], s[u]);
+            s[u] = fmaf(hi_f(hw[e]), w2c[8 * i + 2 * e + 1], s[u]);
+          }
+        }
+      }
+      if (lane < RD2) {
+#pragma unroll
+        for (int u = 0; u < kAtOnce; ++u)
+          EMB[(r + u * kClWarps) * lde + rd_col + lane] =
+              from_f<bf16>(leaky_b(rnd<bf16>(rnd<bf16>(s[u]) + b2c)));
+      }
+    }
+  }
+  __syncthreads();
+  // 4. frequency embedding (f32 phases, accurate sincosf), a (row, phase) a
+  //    thread
+  {
+    const int nj = 3 * NF;
+    for (int i = tid; i < kRows * nj; i += kClThreads) {
+      const int r = i / nj;
+      const int j = i - r * nj;
+      float sn, cs;
+      sincosf(OFF[r * 4 + j % 3] * __ldg(a.freqs + j / 3), &sn, &cs);
+      EMB[r * lde + sin_col + j] = from_f<bf16>(sn);
+      EMB[r * lde + cos_col + j] = from_f<bf16>(cs);
+    }
+  }
+  cp_async_wait<0>();
+  mbar_wait(fbar, 0);
+  cluster_sync();   // every CTA's share of the weights is in place (and this CTA's inputs)
+
+  // 5. base_mlp and the value projection; once fc0 has read x_in, its
+  //    region holds A and B, two [kRows, 128] tiles. Warp w reads the
+  //    weights of its 16 columns from CTA w / 2, which holds their
+  //    32-column block.
+  bf16* A = FEAT;
+  bf16* B = FEAT + kRows * kLdhB;
+  const Operand<bf16> opA = tile_operand(static_cast<const bf16*>(A), kLdhB);
+  const Operand<bf16> opB = tile_operand(static_cast<const bf16*>(B), kLdhB);
+  uint32_t wsrc = cluster_addr(WS + (warp & 1) * 512 + lane * 16, warp >> 1);
+  const int ks_trig = trig / kKStepB;
+  const Operand<bf16> x_in{FX, F, F, a.ks_f, EMB, lde, a.ks_f + a.ks_e,
+                           {a.ks_f + 1, a.ks_f + 1 + ks_trig, a.ks_f + 1 + 2 * ks_trig}};
+  product_cl<MT, true>(x_in, x_in.nks_c, wsrc, A, a.b0, W, true, true, warp, lane);
+  wsrc += a.ks0p * kClChunk;
+  __syncthreads();
+  product_cl<MT, false>(opA, kKs, wsrc, B, a.b1, W, true, false, warp, lane);
+  wsrc += kKs * kClChunk;
+  __syncthreads();
+  product_cl<MT, false>(opB, kKs, wsrc, A, a.b2, W, true, false, warp, lane);   // pf
+  wsrc += kKs * kClChunk;
+  __syncthreads();
+  product_cl<MT, false>(opA, kKs, wsrc, B, nullptr, 0, false, false, warp, lane);   // v
+  wsrc += kKs * kClChunk;
+
+  if (K == 1) {
+    // 6'. one neighbour: o = v; y = v @ wfc; residual mv
+    __syncthreads();
+    product_cl<MT, false>(opB, kKs, wsrc, A, nullptr, 0, false, false, warp, lane);
+    __syncthreads();
+    layer_norm(a, A, RowMajor{kLdhB}, MV, kLdhB, n0, t_valid, warp, kClWarps, lane);
+    cluster_sync();   // no CTA leaves while another may read its weights
+    return;
+  }
+
+  // 6. keys (over pf, in place) and queries (the 16-row tiles of mv)
+  product_cl<MT, false>(opA, kKs, wsrc, A, nullptr, 0, false, true, warp, lane);   // k
+  wsrc += kKs * kClChunk;
+  float acc[MT][kClNj][4];
+  const int mt_q = a.q_rows / 16;
+  gemm_cl<MT, false, false>(acc, tile_operand(static_cast<const bf16*>(MV), kLdhB), mt_q, kKs,
+                            wsrc, lane);
+  wsrc += kKs * kClChunk;
+  store_bf<MT, kClNj>(acc, Q, mt_q, nullptr, 0, false, rnd<bf16>(a.q_scale), warp, lane);
+  __syncthreads();
+
+  // 7. Lq=1 attention over the K neighbours
+  attention_cl(Q, A, B, K, t_valid, warp, lane);
+  __syncthreads();
+
+  // 8. output projection, residual and LayerNorm
+  gemm_cl<MT, false, false>(acc, tile_operand(static_cast<const bf16*>(Q), kLdhB), mt_q, kKs,
+                            wsrc, lane);
+  __syncthreads();   // every warp has read o
+  store_bf<MT, kClNj>(acc, Q, mt_q, nullptr, 0, false, 1.f, warp, lane);
+  __syncthreads();
+  layer_norm(a, Q, RowMajor{kLdhB}, MV, kLdhB, n0, t_valid, warp, kClWarps, lane);
+  cluster_sync();   // no CTA leaves while another may read its weights
+}
+
+// the k-steps of the products a launch runs: fc0's, then six [128, 128]
+// products' (four with K = 1: no keys or queries)
+int cluster_ks(int ks0p, int K) { return ks0p + (K > 1 ? 6 : 4) * (kHd / kKStepB); }
+
 struct Plan {
   int ks_f, ks_e, ks0p, lde, feat_elems, region, q_rows, rdw_floats, off_floats, nst;
   size_t smem;
 };
 
-// Shared memory: the ring, the x_in region (features [rows, F] at stride F
-// plus one MMA depth of padding and < 16 bytes of alignment shift, then
-// the embedding [rows, lde]; later the A and B tiles), mv and q/o
-// ([q_rows, ldh] each, K > 1), all of the element type (bf16: 2 bytes,
-// else f32); the ray-diff MLP weights, the f32 offsets (bf16 only) and the
-// barriers. A tile aims at two CTAs per SM, so that one CTA's CUDA-core
-// phases overlap the other's products.
-bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, bool bf, Plan* p) {
-  const int dep = bf ? kKStepB : kKStep;
-  const int ldh = bf ? kLdhB : kLdh;
-  const int es = bf ? 2 : 4;
-  const int vec = 16 / es;
-  p->ks_f = (F + dep - 1) / dep;
-  // embedding columns; in bf16 each block starts on a k-step
-  const int emb = bf ? kKStepB + 2 * ((3 * NF + kKStepB - 1) / kKStepB * kKStepB) + RD2
-                     : 3 + 6 * NF + RD2;
-  p->ks_e = (emb + dep - 1) / dep;
+// Shared memory of the f32 tiles: the ring, the x_in region (features
+// [rows, F] at stride F plus one MMA depth of padding and < 16 bytes of
+// alignment shift, then the embedding [rows, lde]; later the A and B
+// tiles), mv and q/o ([q_rows, kLdh] each, K > 1); the ray-diff MLP
+// weights and the barriers. A tile aims at two CTAs per SM, so that one
+// CTA's CUDA-core phases overlap the other's products.
+bool make_plan(int rows, int T, int K, int F, int NF, int RD1, int RD2, Plan* p) {
+  constexpr int vec = 4;   // floats of 16 bytes
+  p->ks_f = (F + kKStep - 1) / kKStep;
+  p->ks_e = (3 + 6 * NF + RD2 + kKStep - 1) / kKStep;
   p->ks0p = (p->ks_f + p->ks_e + kStageK - 1) / kStageK * kStageK;
-  p->lde = dep * p->ks_e + (bf ? Elem<bf16>::kLdePad : Elem<float>::kLdePad);
-  p->feat_elems = (rows * F + dep + vec - 1 + vec - 1) / vec * vec;   // + the alignment shift
+  p->lde = kKStep * p->ks_e + Elem<float>::kLdePad;
+  p->feat_elems = (rows * F + kKStep + vec - 1 + vec - 1) / vec * vec;   // + the alignment shift
   const int x_in = p->feat_elems + rows * p->lde;
-  p->region = x_in > 2 * rows * ldh ? x_in : 2 * rows * ldh;
+  p->region = x_in > 2 * rows * kLdh ? x_in : 2 * rows * kLdh;
   p->region = (p->region + vec - 1) / vec * vec;
   p->q_rows = K > 1 ? (T + 15) / 16 * 16 : 0;
   p->rdw_floats = (4 * RD1 + RD1 + RD1 * RD2 + RD2 + 3) / 4 * 4;
-  p->off_floats = bf ? 4 * rows : 0;
+  p->off_floats = 0;
   const size_t rest =
-      es * (static_cast<size_t>(p->region) + 2 * static_cast<size_t>(p->q_rows) * ldh) +
-      sizeof(float) * static_cast<size_t>(p->rdw_floats + p->off_floats) +
-      (2 * kMaxStages + 2) * sizeof(uint64_t);
+      sizeof(float) * (static_cast<size_t>(p->region) + 2 * static_cast<size_t>(p->q_rows) * kLdh) +
+      sizeof(float) * static_cast<size_t>(p->rdw_floats) + (2 * kMaxStages + 2) * sizeof(uint64_t);
   size_t cap = kSmemMax;
   if (rest + 2 * kStageBytes <= static_cast<size_t>(kSmemHalf)) cap = kSmemHalf;
   if (rest + 2 * kStageBytes > cap) return false;
@@ -1973,11 +2397,38 @@ bool make_plan_wide(int nwg, int T, int K, int F, int NF, int RD1, int RD2, Plan
   return false;
 }
 
+// The cluster tiles' plan: the CTA's share of the weights (the k-steps a
+// launch runs, kClChunk bytes each), then the x_in region (later A and B),
+// mv and q/o, the ray-diff MLP weights and the f32 offsets, no ring.
+bool make_plan_cl(int rows, int T, int K, int F, int NF, int RD1, int RD2, Plan* p) {
+  if (T * K > rows || T < 1) return false;
+  p->ks_f = (F + kKStepB - 1) / kKStepB;
+  const int emb = kKStepB + 2 * ((3 * NF + kKStepB - 1) / kKStepB * kKStepB) + RD2;
+  p->ks_e = (emb + kKStepB - 1) / kKStepB;
+  p->ks0p = (p->ks_f + p->ks_e + kStageK - 1) / kStageK * kStageK;
+  p->lde = kKStepB * p->ks_e + Elem<bf16>::kLdePad;
+  p->feat_elems = (rows * F + kKStepB + 7 + 7) / 8 * 8;   // + the alignment shift
+  const int x_in = p->feat_elems + rows * p->lde;
+  p->region = ((x_in > 2 * rows * kLdhB ? x_in : 2 * rows * kLdhB) + 7) / 8 * 8;
+  p->q_rows = (T + 15) / 16 * 16;
+  p->rdw_floats = (4 * RD1 + RD1 + RD1 * RD2 + RD2 + 3) / 4 * 4;
+  p->off_floats = 4 * rows;
+  p->nst = 0;
+  p->smem = kClHeader + static_cast<size_t>(cluster_ks(p->ks0p, K)) * kClChunk +
+            2 * (static_cast<size_t>(p->region) + 2 * static_cast<size_t>(p->q_rows) * kLdhB) +
+            sizeof(float) * static_cast<size_t>(p->rdw_floats + p->off_floats);
+  return p->smem <= static_cast<size_t>(kSmemMax);
+}
+
+// bf16: 16/32-row cluster tiles and 64/128-row wide tiles; f32: 16, 32 and
+// 64 rows
 bool plan_for(int rows, int T, int K, int F, int NF, int RD1, int RD2, bool bf, Plan* p) {
-  if (bf && rows >= kWgRows)
+  if (bf && rows < kWgRows)
+    return (rows == 16 || rows == 32) && make_plan_cl(rows, T, K, F, NF, RD1, RD2, p);
+  if (bf)
     return (rows == kWgRows || rows == 2 * kWgRows) &&
            make_plan_wide(rows / kWgRows, T, K, F, NF, RD1, RD2, p);
-  return rows <= kWgRows && make_plan(rows, T, K, F, NF, RD1, RD2, bf, p);
+  return rows <= kWgRows && make_plan(rows, T, K, F, NF, RD1, RD2, p);
 }
 
 template <int NWG>
@@ -1991,22 +2442,46 @@ int launch_wide(const Args& a, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT, typename E>
+template <int MT>
+int launch_cluster(const Args& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_agg_cluster<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (a.N + a.T - 1) / a.T;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + kClusterCtas - 1) / kClusterCtas * kClusterCtas, 1, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_agg_cluster<MT>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
 int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_agg_kernel<MT, E>,
+  cudaError_t err = cudaFuncSetAttribute(fused_agg_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (a.N + a.T - 1) / a.T;
-  fused_agg_kernel<MT, E><<<grid, (kCons + 1) * 32, smem, stream>>>(a);
+  fused_agg_kernel<MT><<<grid, (kCons + 1) * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_rows(const Args& a, int rows, bool bf, size_t smem, cudaStream_t s) {
   switch (rows) {
-    case 16: return bf ? launch_kernel<1, bf16>(a, smem, s) : launch_kernel<1, float>(a, smem, s);
-    case 32: return bf ? launch_kernel<2, bf16>(a, smem, s) : launch_kernel<2, float>(a, smem, s);
-    case 64: return bf ? launch_wide<1>(a, smem, s) : launch_kernel<4, float>(a, smem, s);
+    case 16: return bf ? launch_cluster<1>(a, smem, s) : launch_kernel<1>(a, smem, s);
+    case 32: return bf ? launch_cluster<2>(a, smem, s) : launch_kernel<2>(a, smem, s);
+    case 64: return bf ? launch_wide<1>(a, smem, s) : launch_kernel<4>(a, smem, s);
     case 128: return bf ? launch_wide<2>(a, smem, s) : static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2030,28 +2505,33 @@ size_t fused_agg_smem_bytes(int rows, int T, int K, int F, int NF, int RD1, int 
 // bf != 0: the bf16 instantiation (mv, nb_feat and wpack bf16), else f32.
 // wpack holds the seven products in the ring's order and layout
 // (ops/fused_agg.py:pack_agg_weights); rows in {16, 32, 64} (f32) or {16,
-// 32, 64, 128} (bf16), T*K <= rows; bf16 tiles of 64 and 128 rows hold
-// T = (rows / 64) (64 / K) samples (K <= 64).
+// 32, 64, 128} (bf16), T*K <= rows; bf16 tiles of 64 and 128 rows hold T =
+// (rows / 64) (64 / K) samples (K <= 64). bf16 tiles of 16 and 32 rows run
+// in clusters of kClusterCtas CTAs, which read the products from wmat (a host
+// array of their seven f32 device pointers, in the ring's order) and not
+// from wpack (null then).
 int fused_agg_forward(const float* xyz, const float* dir, int dir_stride, const void* mv,
                       const float* nb_xyz, const float* nb_dir, const void* nb_feat,
                       const float* scale, const float* freqs, const float* rd_w1,
                       const float* rd_b1, const float* rd_w2, const float* rd_b2,
-                      const void* wpack, const float* b0, const float* b1, const float* b2,
-                      const float* ln_s, const float* ln_b, float* out, int N, int K, int F,
-                      int W, int NF, int RD1, int RD2, int rows, int T, float q_scale, int bf,
-                      void* stream) {
+                      const void* wpack, const float* const* wmat, const float* b0,
+                      const float* b1, const float* b2, const float* ln_s, const float* ln_b,
+                      float* out, int N, int K, int F, int W, int NF, int RD1, int RD2, int rows,
+                      int T, float q_scale, int bf, void* stream) {
   if (N <= 0) return 0;
   Plan p;
   if (T < 1 || K < 1 || T * K > rows || W < 1 || W > kHd || (bf && W % 2) || RD1 < 1 ||
       RD1 > kMaxRd || RD1 > 6 * NF || RD2 < 1 || RD2 > kMaxRd ||
       !plan_for(rows, T, K, F, NF, RD1, RD2, bf != 0, &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{xyz,    dir,    mv,     nb_xyz,        nb_dir,   nb_feat,  scale,
+  Args a{xyz,    dir,    mv,     nb_xyz,        nb_dir,   nb_feat,  scale,
                freqs,  rd_w1,  rd_b1,  rd_w2,         rd_b2,    wpack,    b0,
                b1,     b2,     ln_s,   ln_b,          out,      N,        K,
                F,      W,      NF,     RD1,           RD2,      T,        dir_stride,
                p.ks_f, p.ks_e, p.ks0p, p.lde,         p.feat_elems,       p.region,
                p.q_rows,       p.nst,  p.rdw_floats,  p.off_floats,       q_scale};
+  a.cl_ks = cluster_ks(p.ks0p, K);
+  for (int i = 0; i < kProducts; ++i) a.wmat[i] = wmat != nullptr ? wmat[i] : nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return launch_rows(a, rows, bf != 0, p.smem, s);
 }

@@ -12,7 +12,11 @@ through its plain version, csrc/tsdf_host.cpp (the host copy of the JAX
 engine's integrate, built with the host's C++ compiler); there is no
 fallback between them. The two give bit-equal volumes (see the sources).
 The world-to-camera transform is computed once per frame on the host, in
-float32 steps in the JAX engine's order, and handed to either.
+float32 steps in the JAX engine's order, and handed to either. For the
+kernel the host also computes the frame's culling planes in float64
+(`cull_planes`): the kernel skips the bricks of 8x8x8 voxels that no
+update can reach (csrc/tsdf.cu), and `brick_keep_mask` is the numpy mirror
+of its brick test, with the same operations in the same order.
 
 Point extraction on the card is a mask and `torch.nonzero` over the flat
 index (the host loop's (ix, iy, iz) order); on the CPU the host copy's.
@@ -60,7 +64,7 @@ def _host():
 def _kernel_fn():
     fn = native.load("tsdf").tsdf_integrate_cuda
     fn.argtypes = [_P] * 5 + [ctypes.c_int] * 3 + [_P, _F, _F, _P, _P, ctypes.c_int,
-                                                   ctypes.c_int, _P, _P, _P, _F, _P, _P]
+                                                   ctypes.c_int, _P, _P, _P, _P, _F, _P, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,10 +85,90 @@ def world_to_camera(c2w) -> Tuple[np.ndarray, np.ndarray]:
     return R.reshape(9), t
 
 
+BRICK = 8               # voxels a side of the kernel's bricks
+EDGE_PAD = 1.5          # an image edge's widening (pixels): the rounding to a pixel, and one more
+_U = 2.0 ** -24         # float32's unit roundoff
+
+
+def axis_centres(dims, origin: np.ndarray, voxel_size: float):
+    """The voxel centres along each axis, float32, as the update computes
+    them: origin + (float)i * voxel, each step rounded."""
+    vs = np.float32(voxel_size)
+    return [np.float32(origin[a]) + np.arange(int(n), dtype=np.float32) * vs
+            for a, n in enumerate(dims)]
+
+
+def cull_planes(dims, origin: np.ndarray, voxel_size: float, sdf_trunc: float, K: np.ndarray,
+                R: np.ndarray, t: np.ndarray, H: int, W: int,
+                depth_max: Optional[float] = None) -> np.ndarray:
+    """The frame's culling planes for the kernel (csrc/tsdf.cu, struct
+    Cull), float64 [23]: the camera depth pz as an affine form [4] of the
+    world point, the four image edges widened by EDGE_PAD pixels [4 x 4]
+    (>= 0 inside, for pz > 0), then m_z, z_far and z_keep.
+
+    With the float32 K, R, t the update uses, taken exactly: a voxel's
+    float32 pz, px, py differ from the exact forms by at most e_p = 6 u M
+    (M bounds |w| summed over the axes plus |t|), so
+    - a voxel with float pz > 0 has exact pz > -m_z (m_z = 2 e_p);
+    - a voxel the frame updates has float pz <= depth_max + sdf_trunc, so
+      exact pz <= z_far (+inf without depth_max);
+    - where pz > z_keep, its pixel is off by under a quarter pixel, so a
+      voxel whose rounded pixel is in the image lies inside every widened
+      edge; a projection can leave the int range (and is counted) only
+      where pz < z_keep / 2.
+    A brick is skipped only if all of its voxels fail one of these."""
+    k = np.asarray(K, np.float32).reshape(9).astype(np.float64)
+    fx, cx, fy, cy = k[0], k[2], k[4], k[5]
+    Rm = np.asarray(R, np.float32).reshape(3, 3).astype(np.float64)
+    tv = np.asarray(t, np.float32).reshape(3).astype(np.float64)
+    px, py, pz = (np.append(Rm[i], tv[i]) for i in range(3))
+    side = [fx * px + (cx + EDGE_PAD) * pz, (W - 1 + EDGE_PAD - cx) * pz - fx * px,
+            fy * py + (cy + EDGE_PAD) * pz, (H - 1 + EDGE_PAD - cy) * pz - fy * py]
+    cent = axis_centres(dims, origin, voxel_size)
+    M = sum(max(abs(float(c[0])), abs(float(c[-1]))) for c in cent) + float(np.abs(tv).max())
+    e_p = 6 * _U * M
+    span = max(W + abs(cx) + 1 + abs(fx), H + abs(cy) + 1 + abs(fy))
+    z_ovf = 2 * max(abs(fx), abs(fy)) * (M + e_p) / 2.0 ** 31 + e_p
+    z_keep = max(4 * span * e_p, 2 * z_ovf)
+    z_far = np.inf
+    if depth_max is not None and np.isfinite(depth_max):
+        z_far = max((depth_max + sdf_trunc) * (1 + 4 * _U) + 2 * e_p, z_keep)
+    return np.concatenate([pz, *side, [2 * e_p, z_far, z_keep]]).astype(np.float64)
+
+
+def brick_keep_mask(dims, origin: np.ndarray, voxel_size: float, cull: np.ndarray) -> np.ndarray:
+    """The kernel's brick test in numpy, on the numbers it is given: bool
+    [nbx, nby, nbz], True where the kernel runs the brick's voxels. Each
+    plane's extreme over a brick's corners is summed in float64 in the
+    kernel's order (plane_extreme), so the two agree brick for brick."""
+    cent = axis_centres(dims, origin, voxel_size)
+    lo, hi = [], []
+    for a, c in enumerate(cent):
+        first = np.arange(0, len(c), BRICK)
+        shape = [1, 1, 1]
+        shape[a] = len(first)
+        lo.append(c[first].astype(np.float64).reshape(shape))
+        hi.append(c[np.minimum(first + BRICK, len(c)) - 1].astype(np.float64).reshape(shape))
+
+    def extreme(p, largest: bool):
+        v = np.float64(p[3])
+        for a in range(3):
+            v = v + p[a] * (hi[a] if (p[a] > 0.0) == largest else lo[a])
+        return v
+    pz, side = cull[:4], cull[4:20].reshape(4, 4)
+    m_z, z_far, z_keep = cull[20:23]
+    zmin = extreme(pz, False)
+    keep = ~((extreme(pz, True) < -m_z) | (zmin > z_far))
+    outside = np.zeros_like(keep)
+    for p in side:
+        outside |= extreme(p, True) < 0.0
+    return keep & ~((zmin > z_keep) & outside)
+
+
 def integrate_frame(vol: Dict[str, Tensor], dims, origin: np.ndarray, voxel_size: float,
                     sdf_trunc: float, depth: Tensor, color: Optional[Tensor], K: np.ndarray,
                     R: np.ndarray, t: np.ndarray, obs_weight: float,
-                    overflow: Tensor) -> None:
+                    overflow: Tensor, depth_max: Optional[float] = None) -> None:
     """Integrate one frame into the volume `vol` (tsdf, weight, r, g, b
     [nx*ny*nz] float32 contiguous). depth [H, W] metres and color [H, W, 3]
     in [0, 1] (or None) float32 on the volume's device; K [9], R [9], t [3]
@@ -117,13 +201,23 @@ def integrate_frame(vol: Dict[str, Tensor], dims, origin: np.ndarray, voxel_size
         raise ValueError(f"tsdf: no integration on {dev}")
     if overflow.dtype != torch.int64 or overflow.device != dev:
         raise ValueError(f"tsdf: the overflow counter must be int64 on {dev}")
+    cull = cull_planes((nx, ny, nz), host[0], voxel_size, sdf_trunc, host[1], host[2], host[3],
+                       H, W, depth_max)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn()(*args, nx, ny, nz, _ptr(host[0]), voxel_size, sdf_trunc,
                        depth.data_ptr(), cptr or None, H, W, _ptr(host[1]), _ptr(host[2]),
-                       _ptr(host[3]), obs_weight, overflow.data_ptr(), stream)
+                       _ptr(host[3]), _ptr(cull), obs_weight, overflow.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tsdf kernel launch failed: CUDA error {err}")
     LAUNCHES.n += 1
+
+
+def frame_depth_max(depth) -> float:
+    """A frame's largest depth, as float32 values compare (NaN if the frame
+    holds one: then nothing is culled by depth). A host frame is reduced on
+    the host; a frame already on the card there, and the host reads it."""
+    d = torch.as_tensor(depth, dtype=torch.float32)
+    return float(d.max()) if d.numel() else 0.0
 
 
 class TSDFVolume:
@@ -134,14 +228,28 @@ class TSDFVolume:
                  trunc_margin: Optional[float] = None, device: DeviceLike = None):
         """vol_bounds: [3, 2] min/max in metres."""
         vol_bounds = np.asarray(vol_bounds, dtype=np.float32)
-        self.device = resolve_device(device)
-        self.voxel_size = float(voxel_size)
-        self.sdf_trunc = float(trunc_margin if trunc_margin is not None
-                               else 5.0 * voxel_size)
         dims = np.ceil((vol_bounds[:, 1] - vol_bounds[:, 0])
                        / voxel_size).astype(np.int64)
-        self.dims = np.maximum(dims, 1)
-        self.origin = np.ascontiguousarray(vol_bounds[:, 0], dtype=np.float32)
+        self._allocate(np.maximum(dims, 1), vol_bounds[:, 0], voxel_size,
+                       trunc_margin if trunc_margin is not None else 5.0 * voxel_size,
+                       device)
+
+    @classmethod
+    def on_grid(cls, dims, origin: np.ndarray, voxel_size: float, sdf_trunc: float,
+                device: DeviceLike = None) -> "TSDFVolume":
+        """An empty volume of `dims` voxels from `origin` (float32 [3]),
+        for example another volume's grid on another device."""
+        vol = cls.__new__(cls)
+        vol._allocate(np.asarray(dims, np.int64), origin, voxel_size, sdf_trunc, device)
+        return vol
+
+    def _allocate(self, dims: np.ndarray, origin, voxel_size: float, sdf_trunc: float,
+                  device: DeviceLike) -> None:
+        self.device = resolve_device(device)
+        self.voxel_size = float(voxel_size)
+        self.sdf_trunc = float(sdf_trunc)
+        self.dims = dims
+        self.origin = np.ascontiguousarray(origin, dtype=np.float32)
         n = int(np.prod(self.dims))
         self.tsdf = torch.ones(n, dtype=torch.float32, device=self.device)
         self.weight, self.r, self.g, self.b = (
@@ -166,13 +274,15 @@ class TSDFVolume:
     def integrate(self, color, depth, K: np.ndarray, c2w: np.ndarray,
                   obs_weight: float = 1.0):
         """color [H,W,3] in [0,1] or None; depth [H,W] metres; c2w [4,4].
-        color and depth may be numpy arrays (uploaded once) or tensors."""
+        color and depth may be numpy arrays (uploaded once) or tensors. On
+        the card the frame's largest depth gives the kernel its far plane."""
         R, t = world_to_camera(c2w)
+        depth_max = frame_depth_max(depth) if self.device.type == "cuda" else None
         integrate_frame(self.volume(), self.dims, self.origin, self.voxel_size,
                         self.sdf_trunc, self._upload(depth),
                         None if color is None else self._upload(color),
                         np.asarray(K, np.float32).reshape(9), R, t, float(obs_weight),
-                        self._overflow)
+                        self._overflow, depth_max)
 
     def get_point_cloud(self, thresh: float = 0.2) -> Tuple[np.ndarray, np.ndarray]:
         """Surface voxel centres and colours (|tsdf| < thresh, weight > 0),

@@ -11,13 +11,16 @@ ops/native.py), in two instantiations, as the Pallas kernel has two
 (`dt`): f32, whose seven matrix products run on the tensor cores as 3xTF32
 (f32 accuracy; wgmma for 64-row tiles, mma.sync for smaller ones), and
 bf16 (mv_agg and nb_feat in bf16, one bf16 MMA per product; rounding where
-the Pallas kernel rounds): mma.sync for 16- and 32-row tiles, and for
-tiles of 64 and 128 rows `fused_agg_wide`, whose consumer warpgroups
-of 64 rows share one weight ring and keep their wgmma products in flight.
-Both are fed by a ring of weight stages filled with cp.async.bulk ahead of
-need; a tile's activations stay in shared memory, so device memory sees
-each input once and each output once (see the source's header note). The
-output is f32 either way.
+the Pallas kernel rounds): for tiles of 64 and 128 rows `fused_agg_wide`,
+whose consumer warpgroups of 64 rows share one weight ring and keep their
+wgmma products in flight, and for 16- and 32-row tiles (launches too small
+to fill the card with those, the query's K = 1 launch among them)
+`fused_agg_cluster`, thread-block clusters of CLUSTER_CTAS CTAs that hold
+the weights once between them, rounded from the f32 parameters by their
+own threads (nothing packed), read across the cluster by mma.sync. The
+rings are filled with cp.async.bulk ahead of need; a tile's activations
+stay in shared memory, so device memory sees each input once and each
+output once (see the source's header note). The output is f32 either way.
 
 - `reference_agg`: the plain PyTorch version of JAX's reference_agg, at
   f32 or bf16. f32 CPU tensors take it; the backward replays it at the
@@ -25,10 +28,13 @@ output is f32 either way.
 - `kernel_agg`: the plain version of the bf16 instantiation, rounding
   where the Pallas kernel at dt=bf16 rounds. bf16 CPU tensors take it.
 - `pack_agg_weights`: the seven products in the ring's order and MMA
-  layout (one of four), built on the device with one gather per call.
-- `tile_options`, `tile_samples`, `tile_plan`: the tiles a launch can
-  take, the samples a tile holds, the tile a launch takes;
-  `weight_stream_bytes`: the weights a launch streams from L2.
+  layout (one of four; the bf16 mma.sync one is the layout the cluster
+  tiles build in shared memory themselves), built on the device with one
+  gather per call.
+- `tile_options`, `tile_samples`, `tile_plan`, `tile_cluster`: the tiles a
+  launch can take, the samples a tile holds, the tile a launch takes, the
+  CTAs of its clusters; `weight_stream_bytes`: the weights a launch reads
+  from L2.
 - `fused_neighbor_agg`: the wrapper. CPU inputs -> the plain version; CUDA
   inputs -> the kernel (or an error; there is no fallback).
 - `LAUNCHES`, `LAUNCHES_BF16`: launches of the f32 and of the bf16
@@ -51,10 +57,15 @@ N_HEAD, D_K = 4, 32
 HD = N_HEAD * D_K             # 128: attention width, and the padded W
 LN_EPS = 1e-6
 LEAK = 0.01
-TILE_ROWS = (16, 32, 64, 128)   # rows (T*K, padded) of one CTA; f32 up to 64
+# rows (T*K, padded) of one CTA, f32 and bf16
+TILE_ROWS = {False: (16, 32, 64), True: (16, 32, 64, 128)}
 # tiles of this many rows and more run their products as wgmma; a bf16 one
 # has a consumer warpgroup for each WGMMA_ROWS rows
 WGMMA_ROWS = 64
+# bf16 tiles of fewer rows run as thread-block clusters of this many CTAs,
+# which hold the weights once between them (csrc/fused_agg.cu,
+# fused_agg_cluster)
+CLUSTER_CTAS = 4
 PARAM_KEYS = ("rd_w1", "rd_b1", "rd_w2", "rd_b2", "b_w0p", "b_b0", "b_w1",
               "b_b1", "b_w2", "b_b2", "a_wq", "a_wk", "a_wv", "a_wfc",
               "ln_s", "ln_b")
@@ -385,12 +396,12 @@ def pack_agg_weights(params: Dict[str, Tensor], F: int, NF: int,
 
 
 def tile_options(K: int, bf16: bool = False) -> Tuple[int, ...]:
-    """The tile sizes (rows of one CTA) a launch with K neighbours can take:
-    f32 tiles of up to 64 rows, bf16 ones of up to 128 (64 rows a consumer
-    warpgroup from 64 on, so K <= 64)."""
+    """The tile sizes (rows of one CTA) a launch with K neighbours can take
+    (TILE_ROWS: f32 tiles of up to 64 rows, bf16 ones of up to 128, 64 rows
+    a consumer warpgroup from 64 on, so K <= 64)."""
     if not 1 <= K <= WGMMA_ROWS:
         raise ValueError(f"fused_agg: unsupported K={K}")
-    return tuple(r for r in TILE_ROWS if r >= K and (bf16 or r <= WGMMA_ROWS))
+    return tuple(r for r in TILE_ROWS[bf16] if r >= K)
 
 
 def tile_samples(rows: int, K: int, bf16: bool = False) -> int:
@@ -406,29 +417,67 @@ def tile_plan(N: int, K: int, n_sm: int, bf16: bool = False) -> Tuple[int, int]:
     """(rows, T): rows of one CTA and the T samples it holds (tile_samples);
     CTA b takes samples [b T, min(N, (b + 1) T)).
 
-    The largest tile that still gives every SM a CTA; launches too small
-    for that take the smallest tile, to spread over more SMs. On the H100
-    the largest bf16 tile, 128 rows (two CTAs an SM), ran ahead of 64 rows
-    and of four-warpgroup 256-row tiles at the train, refinement and render
-    shapes (PERF.md has the times of every tile at each shape)."""
+    f32: the largest tile that still gives every SM a CTA; launches too
+    small for that take the smallest tile, to spread over more SMs.
+    bf16: the 16-row cluster tile while its grid fills at most 7/8 of the
+    SMs, else the 32-row one while its grid holds at most 3/2 CTAs an SM,
+    else the 128-row wide tile where it gives 7/8 of the SMs a CTA, else
+    the 64-row one. On the H100 a cluster CTA runs fastest alone on its SM
+    and its chain is shorter than a wide CTA's, so small launches take the
+    cluster tiles (N = 1024: 16 rows at K = 1, 1.31x the old 16-row tile;
+    32 rows at K = 8 and N = 256-700, K = 1 and N = 2048-6000); past ~1.5
+    CTAs an SM the 64-row wide tile is faster (K = 8, N = 900 and 1024),
+    and at the train, refinement and render shapes the 128-row one (two
+    CTAs an SM) ran ahead of 64 rows and of four-warpgroup 256-row tiles.
+    PERF.md has the times of every tile at each shape, and the shapes
+    where the old tiles were faster (K = 8 and N = 512, K = 1 and N =
+    4096)."""
     options = tile_options(K, bf16)
+    if bf16:
+        if 16 in options and cluster_ctas(N, K, 16, CLUSTER_CTAS) * 8 <= n_sm * 7:
+            return 16, tile_samples(16, K, True)
+        if 32 in options and cluster_ctas(N, K, 32, CLUSTER_CTAS) * 2 <= n_sm * 3:
+            return 32, tile_samples(32, K, True)
+        rows = 128 if -(-N // tile_samples(128, K, True)) * 8 >= n_sm * 7 else 64
+        return rows, tile_samples(rows, K, True)
     for rows in reversed(options):
-        if -(-N // tile_samples(rows, K, bf16)) >= n_sm:
-            return rows, tile_samples(rows, K, bf16)
-    return options[0], tile_samples(options[0], K, bf16)
+        if -(-N // tile_samples(rows, K)) >= n_sm:
+            return rows, tile_samples(rows, K)
+    return options[0], tile_samples(options[0], K)
+
+
+def tile_cluster(rows: int, bf16: bool = False) -> int:
+    """CTAs a cluster of the tile (CLUSTER_CTAS for the bf16 tiles below
+    WGMMA_ROWS), 0 for a tile of single CTAs."""
+    return CLUSTER_CTAS if bf16 and rows < WGMMA_ROWS else 0
+
+
+def cluster_ctas(N: int, K: int, rows: int, cluster: int) -> int:
+    """CTAs of a cluster launch: a tile of T samples each, rounded up to
+    whole clusters (the CTAs past N only hold their share of the weights)."""
+    tiles = -(-N // tile_samples(rows, K, True))
+    return -(-tiles // cluster) * cluster
 
 
 def weight_stream_bytes(N: int, K: int, rows: int, F: int, NF: int, RD2: int,
                         bf16: bool = False) -> int:
-    """Bytes of packed weights one launch streams into the CTAs' rings, by
-    count, not measured: every CTA issues the whole stream once (with K = 1
-    the key and query products are skipped), whatever its number of rows."""
-    T = tile_samples(rows, K, bf16)
+    """Bytes of weights one launch reads from L2 into its CTAs' shared
+    memory, by count, not measured: every CTA of single-CTA tiles streams
+    the whole packed buffer once through its ring; a cluster (tile_cluster)
+    reads the f32 parameters (W = HD columns) once for all its CTAs, each
+    CTA its own columns (with K = 1 the key and query products are skipped
+    either way)."""
+    products = 6 if K > 1 else 4
+    cs = tile_cluster(rows, bf16)
+    if cs:
+        fin = F + 3 + 6 * NF + RD2
+        f32 = fin * HD + 2 * HD * HD + (products - 3) * HD * HD + HD * HD
+        return cluster_ctas(N, K, rows, cs) // cs * f32 * 4
     depth = 16 if bf16 else 8
     _, fin_p = ring_widths(F, NF, RD2, depth)
     per_elem = 2 if bf16 else (8 if rows >= WGMMA_ROWS else 4)   # f32 wgmma: big and small
-    products = 6 if K > 1 else 4
-    return -(-N // T) * (fin_p + products * HD) * HD * per_elem
+    stream = (fin_p + products * HD) * HD * per_elem
+    return -(-N // tile_samples(rows, K, bf16)) * stream
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +485,7 @@ def weight_stream_bytes(N: int, K: int, rows: int, F: int, NF: int, RD2: int,
 # ---------------------------------------------------------------------------
 
 # argument types of the C entry point fused_agg_forward
-KERNEL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 17
+KERNEL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -453,7 +502,7 @@ def smem_plan(rows: int, T: int, K: int, F: int, NF: int, RD1: int,
               RD2: int, bf16: bool = False) -> Tuple[int, int]:
     """(shared-memory bytes, ring stages) of one CTA of the f32 or bf16
     instantiation, from the kernel's own plan (0 bytes: the tile does not
-    fit)."""
+    fit; 0 stages: a cluster tile, whose weights are resident)."""
     fn = native.load("fused_agg").fused_agg_smem_bytes
     fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_size_t
@@ -527,14 +576,17 @@ def launch(xyz: Tensor, direction: Tensor, mv_agg: Tensor, nb_xyz: Tensor,
     out = torch.empty((N, W), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    wpack = pack_agg_weights(params, F, NF, wgmma=rows >= WGMMA_ROWS, dtype=act)
+    # cluster tiles round their share of the f32 weights themselves
+    wpack = None if tile_cluster(rows, bf16) else pack_agg_weights(
+        params, F, NF, wgmma=rows >= WGMMA_ROWS, dtype=act)
+    wmat = (ctypes.c_void_p * len(RING_KEYS))(*[params[k].data_ptr() for k in RING_KEYS])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn()(
         xyz.data_ptr(), direction.data_ptr(), direction.shape[1],
         mv_agg.data_ptr(), nb_xyz.data_ptr(), nb_dir.data_ptr(),
         nb_feat.data_ptr(), scale.data_ptr(), freqs.data_ptr(),
         *[params[k].data_ptr() for k in ("rd_w1", "rd_b1", "rd_w2", "rd_b2")],
-        wpack.data_ptr(),
+        None if wpack is None else wpack.data_ptr(), wmat,
         *[params[k].data_ptr() for k in ("b_b0", "b_b1", "b_b2", "ln_s", "ln_b")],
         out.data_ptr(), N, K, F, W, NF, RD1, RD2, rows, T,
         1.0 / math.sqrt(D_K), int(bf16), stream)

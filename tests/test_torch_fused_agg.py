@@ -394,13 +394,23 @@ def test_wide_tiles_keep_each_sample_in_one_warpgroup(K):
 
 
 @pytest.mark.parametrize("K", [1, 8])
-@pytest.mark.parametrize("rows,bf16", [(32, False), (64, False), (32, True), (128, True)])
+@pytest.mark.parametrize("rows,bf16", [(32, False), (64, False), (16, True), (32, True),
+                                       (128, True)])
 def test_weight_stream_bytes_count_the_packed_ring(K, rows, bf16):
     """weight_stream_bytes: every CTA of the launch reads the packed buffer
     pack_agg_weights builds for its tile once, less the key and query
-    products when K = 1 (the kernel skips them)."""
+    products when K = 1 (the kernel skips them); a cluster tile (bf16
+    below 64 rows) reads the f32 weights of the products it runs once for
+    its CLUSTER_CTAS CTAs, and the grid is rounded up to whole clusters."""
     params = _main_width_params(np.random.default_rng(1))
     N = 5000
+    cs = tfa.tile_cluster(rows, bf16)
+    if cs:
+        keys = [k for k in tfa.RING_KEYS if K > 1 or k not in ("a_wk", "a_wq")]
+        per_cluster = sum(params[k].numel() * 4 for k in keys)
+        clusters = -(-(-(-N // tfa.tile_samples(rows, K, bf16))) // cs)
+        assert tfa.weight_stream_bytes(N, K, rows, 195, 10, 27, bf16) == clusters * per_cluster
+        return
     packed = tfa.pack_agg_weights(params, 195, 10, wgmma=rows >= tfa.WGMMA_ROWS,
                                   dtype=torch.bfloat16 if bf16 else torch.float32)
     per_cta = packed.numel() * packed.element_size()
@@ -408,6 +418,66 @@ def test_weight_stream_bytes_count_the_packed_ring(K, rows, bf16):
         per_cta -= 2 * 128 * 128 * packed.element_size() * (2 if rows >= 64 and not bf16 else 1)
     grid = -(-N // tfa.tile_samples(rows, K, bf16))
     assert tfa.weight_stream_bytes(N, K, rows, 195, 10, 27, bf16) == grid * per_cta
+
+
+@pytest.mark.parametrize("N,K,rows", [
+    (1024, 8, 64), (1000, 8, 64), (1001, 8, 64), (37, 8, 16), (1024, 1, 16), (1000, 1, 16),
+    (999, 1, 16), (37, 1, 16), (256, 8, 32), (384, 8, 32), (512, 8, 32), (700, 8, 32),
+    (900, 8, 64), (100, 12, 16), (200, 12, 32), (300, 3, 16), (2048, 1, 32), (4096, 1, 32),
+    (6000, 1, 32), (8192, 1, 64), (32768, 1, 128)])
+def test_bf16_query_plan_covers_every_row_once(N, K, rows):
+    """The bf16 plan of launches up to a query's size (N=1024 keypoints,
+    K=8 and K=1, ragged N, K=3 and 12): on the H100 (132 SMs) it takes,
+    among this kernel's tiles, the one measured fastest at each shape timed
+    (PERF.md, tools/compare_fused_agg.py --shapes): a cluster tile while
+    its clusters hold about a CTA an SM, 16 rows before 32, then the wide
+    tiles. A cluster tile's grid is whole clusters of CLUSTER_CTAS (the
+    CTAs past N, fewer than a cluster, hold weights only); CTA b takes
+    samples [b T, min(N, (b + 1) T)) of its own rows, so every sample lands
+    in exactly one CTA."""
+    assert tfa.tile_plan(N, K, n_sm=132, bf16=True) == (rows, tfa.tile_samples(rows, K, True))
+    T = tfa.tile_samples(rows, K, True)
+    cs = tfa.tile_cluster(rows, bf16=True)
+    assert cs == (tfa.CLUSTER_CTAS if rows < tfa.WGMMA_ROWS else 0)
+    ctas = tfa.cluster_ctas(N, K, rows, cs) if cs else -(-N // T)
+    assert ctas % max(cs, 1) == 0 and 0 <= ctas - -(-N // T) < max(cs, 1)
+    count = np.zeros(N, np.int64)
+    for b in range(ctas):
+        np.add.at(count, np.arange(b * T, min(N, (b + 1) * T)), 1)
+    assert (count == 1).all()
+
+
+def test_cluster_ctas_hold_disjoint_column_blocks():
+    """Each CTA of a cluster holds the weights of its own columns
+    (fused_agg_cluster's load_share places them as pack_agg_weights places
+    the mma.sync layout, k-step by k-step): CTA c's 32-column block c of
+    every k-step holds the columns [32 c, 32 c + 32) and no other, so the
+    CTAs' shares are disjoint and cover every weight once; and warp w of
+    any CTA, reading lane l's 16 bytes at half w % 2 of CTA w // 2, gets
+    the B fragments of its columns [16 w, 16 w + 16)."""
+    cs = tfa.CLUSTER_CTAS
+    F, NF = 195, 10
+    params = _main_width_params(np.random.default_rng(2))
+    # every weight is its column + 1 (exact in bf16; padding stays 0)
+    col = {k: torch.arange(1, v.shape[-1] + 1, dtype=torch.float32).expand_as(v).contiguous()
+           if v.dim() == 2 else v for k, v in params.items()}
+    packed = tfa.pack_agg_weights(col, F, NF, dtype=torch.bfloat16).float()
+    blocks = packed.view(-1, cs, 2, 32, 8)   # [k-step, CTA, half, lane, 8 bf16]
+    seen = set()
+    for c in range(cs):
+        vals = set(blocks[:, c].unique().tolist()) - {0.0}
+        assert vals == set(float(v) for v in range(32 * c + 1, 32 * c + 33))
+        assert not vals & seen
+        seen |= vals
+    assert seen == set(float(v) for v in range(1, 129))
+    g = torch.arange(32) // 4
+    for w in range(8):
+        frag = blocks[:, w // 2, w % 2]   # [k-step, lane, 8]
+        for jl in range(2):   # the bf16 (jl, kh, e): n-tile jl's column is 16 w + 8 jl + g
+            cols = frag[:, :, 4 * jl:4 * jl + 4]
+            nz = cols != 0
+            want = (16 * w + 8 * jl + g + 1).float()[None, :, None].expand_as(cols)
+            assert torch.equal(cols[nz], want[nz]), (w, jl)
 
 
 @pytest.mark.cuda
@@ -449,6 +519,33 @@ def test_cuda_bf16_wide_tiles_match_kernel_agg(N):
     want = tfa.kernel_agg(**xb, params=params, freqs=freqs)
     yard = want - tfa.reference_agg(**x, params=params, freqs=freqs)
     for rows in [r for r in tfa.tile_options(8, bf16=True) if r >= tfa.WGMMA_ROWS]:
+        err = tfa.launch(**xb, params=params, freqs=freqs, rows=rows) - want
+        assert bool(torch.isfinite(err).all())
+        assert float(err.pow(2).mean().sqrt()) <= 0.2 * float(yard.pow(2).mean().sqrt()), rows
+        assert float(err.abs().max()) <= float(yard.abs().max()), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(1024, 8), (1024, 1), (1000, 8), (300, 3), (100, 12),
+                                 (999, 1), (1001, 8), (512, 8), (200, 12)])
+def test_cuda_bf16_query_tiles_match_kernel_agg(N, K):
+    """Runs on a GPU only: the bf16 instantiation at the query shapes (N=1024
+    keypoints, K=8 and K=1), ragged N (999 and 1001 leave a partial last
+    tile and CTAs past N that only hold weights, at 16 and 32 rows), K=3
+    and 12, and the small K > 1 launches that take the 32-row cluster tile,
+    main widths, at the plan's tile and every tile the launch can take,
+    against kernel_agg as chip_smoke.py holds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    params = {k: v.to(dev) for k, v in _main_width_params(np.random.default_rng(N + K)).items()}
+    x = {k: t(v).to(dev) for k, v in _inputs(N, K, 195, 128, seed=N + K).items()}
+    freqs = torch.tensor([2.0 ** i for i in range(10)], device=dev)
+    xb = dict(x, mv_agg=x["mv_agg"].to(torch.bfloat16), nb_feat=x["nb_feat"].to(torch.bfloat16))
+    want = tfa.kernel_agg(**xb, params=params, freqs=freqs)
+    yard = want - tfa.reference_agg(**x, params=params, freqs=freqs)
+    for rows in [0, *tfa.tile_options(K, bf16=True)]:
         err = tfa.launch(**xb, params=params, freqs=freqs, rows=rows) - want
         assert bool(torch.isfinite(err).all())
         assert float(err.pow(2).mean().sqrt()) <= 0.2 * float(yard.pow(2).mean().sqrt()), rows

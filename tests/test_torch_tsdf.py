@@ -17,6 +17,11 @@ other side of 0 in the two engines (counted), vertices within MESH_TOL (a
 crossing interpolates two TSDF values: measured 4.1e-6). The projection guard (a voxel just in
 front of the camera whose pixel would not fit an int is skipped and
 counted) is taken by no voxel of these scenes; a test makes it happen.
+The kernel's brick culling is held through its numpy mirror
+(brick_keep_mask on cull_planes' numbers): on seeded box views, a camera
+looking away from the volume and one inside it whose camera plane cuts it
+(the overflow case), no voxel the host copy updates or counts lies in a
+culled brick; the kernel against the host copy runs on a GPU only.
 """
 import ctypes
 
@@ -213,3 +218,106 @@ def test_projection_overflow_is_skipped_and_counted():
     assert expect > 0
     assert vol.projection_overflows == expect
     assert np.isfinite(vol.tsdf.numpy()).all()
+
+
+def _volume_with(bounds, voxel):
+    return TSDFVolume(np.asarray(bounds, np.float64), voxel, device="cpu")
+
+
+def _camera_cases():
+    """(name, volume, depth, color, K, c2w): the box scene's seeded views;
+    a camera outside the volume looking away from it; a camera inside the
+    volume near its low-z face, one float32 step in front of a plane of
+    voxel centres (their projections leave the int range: the overflow
+    slab)."""
+    K, views = _box_views()
+    bounds = TSDFVolume.frustum_bounds(
+        [v[1] for v in views], [K] * len(views), [v[2] for v in views])
+    cases = [(f"box{i}", _volume_with(bounds, 0.08), depth, rgb, K, c2w)
+             for i, (rgb, depth, c2w) in enumerate(views[:3])]
+    rng = np.random.default_rng(7)
+    H, W = 40, 48
+    Ks = np.array([[40.0, 0, 24.0], [0, 40.0, 20.0], [0, 0, 1.0]])
+    depth = rng.uniform(0.4, 1.6, (H, W)).astype(np.float32)
+    depth[rng.random((H, W)) < 0.05] = 0.0
+    color = rng.random((H, W, 3), dtype=np.float32)
+    away = _volume_with([[-1, 1], [-1, 1], [0, 2]], 0.05)
+    cases.append(("away", away, depth, color, Ks,
+                  look_at_pose(np.array([1.5, 0.1, 1.0]), np.array([4.0, 0.3, 1.2]))))
+    inside = _volume_with([[-1, 1], [-1, 1], [0, 2]], 0.05)
+    cent = ttsdf.axis_centres(inside.dims, inside.origin, inside.voxel_size)
+    c2w = np.eye(4)
+    c2w[:2, 3] = [0.003, 0.013]
+    c2w[2, 3] = float(np.nextafter(cent[2][5], np.float32(-np.inf)))
+    cases.append(("inside", inside, depth, color, Ks, c2w))
+    return cases
+
+
+def _overflow_voxels(vol, K, R, t):
+    """The voxels whose projection leaves the int range, in float32 steps
+    in the host copy's order (numpy rounds each operation)."""
+    f32 = np.float32
+    wx, wy, wz = ttsdf.axis_centres(vol.dims, vol.origin, vol.voxel_size)
+    wx, wy, wz = wx[:, None, None], wy[None, :, None], wz[None, None, :]
+    k = np.asarray(K, f32).reshape(9)
+    R = np.asarray(R, f32)
+    t = np.asarray(t, f32)
+    pz = ((R[6] * wx + R[7] * wy) + t[2]) + R[8] * wz
+    px = ((R[0] * wx + R[1] * wy) + t[0]) + R[2] * wz
+    py = ((R[3] * wx + R[4] * wy) + t[1]) + R[5] * wz
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        qu = (k[0] * px) / pz + k[2]
+        qv = (k[4] * py) / pz + k[5]
+    inside = (np.abs(qu) < f32(2 ** 31)) & (np.abs(qv) < f32(2 ** 31))
+    return (pz > 0) & ~inside
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_brick_culling_keeps_every_voxel_the_host_copy_touches(case):
+    """The kernel's brick test (brick_keep_mask on cull_planes' numbers, with
+    the far plane and without): no voxel that the host copy updates, or
+    skips and counts because its projection leaves the int range, lies in a
+    culled brick; the overflow voxels are the host copy's count. -s prints
+    the share of bricks culled."""
+    name, vol, depth, color, K, c2w = _camera_cases()[case]
+    vol.integrate(color, depth, K, c2w)
+    R, t = ttsdf.world_to_camera(c2w)
+    touched = vol.weight.numpy().reshape(*vol.dims) > 0
+    over = _overflow_voxels(vol, K, R, t)
+    assert int(over.sum()) == vol.projection_overflows
+    if name == "inside":
+        assert vol.projection_overflows > 0
+    if name == "away":
+        assert not touched.any()
+    touched |= over
+    H, W = depth.shape
+    for depth_max in (ttsdf.frame_depth_max(depth), None):
+        cull = ttsdf.cull_planes(vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc,
+                                 np.asarray(K, np.float32).reshape(9), R, t, H, W, depth_max)
+        keep = ttsdf.brick_keep_mask(vol.dims, vol.origin, vol.voxel_size, cull)
+        b = ttsdf.BRICK
+        kv = keep.repeat(b, 0).repeat(b, 1).repeat(b, 2)[:vol.dims[0], :vol.dims[1], :vol.dims[2]]
+        assert not (touched & ~kv).any(), int((touched & ~kv).sum())
+        print(f"{name} (far plane {depth_max is not None}): {keep.size} bricks, "
+              f"{100 * (1 - keep.mean()):.1f} % culled, {int(touched.sum())} voxels touched "
+              f"({int(over.sum())} overflows)")
+    if name == "away":
+        assert not keep.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_cuda_culled_kernel_equals_host_copy(case):
+    """Runs on a GPU only: the culled kernel's volume bit-equal to the host
+    copy's and the same overflow count, one launch, on each camera."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    name, vol, depth, color, K, c2w = _camera_cases()[case]
+    gpu = TSDFVolume.on_grid(vol.dims, vol.origin, vol.voxel_size, vol.sdf_trunc, "cuda")
+    n0 = ttsdf.LAUNCHES.n
+    gpu.integrate(color, depth, K, c2w)
+    vol.integrate(color, depth, K, c2w)
+    assert ttsdf.LAUNCHES.n - n0 == 1
+    for k, v in vol.volume().items():
+        assert torch.equal(gpu.volume()[k].cpu(), v), (name, k)
+    assert gpu.projection_overflows == vol.projection_overflows

@@ -3,6 +3,7 @@
 
     python3 tools/compare_fused_agg.py OTHER_CHECKOUT [--tiles] [--pairs N]
                                        [--dtype both|f32|bf16] [--out FILE]
+                                       [--shapes N:K,N:K,...]
 
 Runs N pairs of turns, other then this, then this then other, and so on
 (N=2: other, this, this, other): each turn is a fresh process that imports
@@ -12,10 +13,14 @@ for the bf16 instantiation) and prints the device time of one
 fused_agg.launch at its default tile, in f32 and in bf16, at the query
 shapes (N=1024 with K=8 and K=1), the refinement shape (N=32768, K=8), the
 train shape (N=65536, K=8) and the render shape (N=262144, K=8), with CUDA
-events behind a sleep kernel (chip_smoke.device_ms). --tiles adds, at the
-three K=8 shapes, every bf16 wgmma tile the checkout offers
-(fused_agg.tile_options), under each of its schedules where its wrapper
-has them (fused_agg.SCHEDULES). Prints each key's speed-up and whether
+events behind a sleep kernel (chip_smoke.device_ms). --tiles adds every
+bf16 tile the checkout offers (fused_agg.tile_options, by rows) at the
+query shapes, and every bf16 wgmma tile at the three K=8 step shapes, so
+that the query plan's tiles (by rows: a checkout's 16-row tile may be a
+cluster of CTAs in one and a single CTA in the other) are timed side by
+side. --shapes replaces the shapes by the given (N, K) pairs (50 timed
+launches each), all of them query-sized for --tiles.
+Prints each key's speed-up and whether
 this checkout is slower beyond the spread: with two turns each the larger
 difference between one checkout's two turns, with more twice the standard
 error of the paired differences. Prints the card's name and power limit.
@@ -54,24 +59,19 @@ for N, K, iters in shapes:
         with torch.no_grad():
             out["%%s %%dx%%d" %% (name, N, K)] = cs.device_ms(lambda: fa.launch(**xi),
                                                              iters=iters)
-            if name != "bf16" or not tiles or N < 32768:
+            if name != "bf16" or not tiles:
                 continue
-            for rows in (r for r in fa.tile_options(K, bf16=True) if r >= fa.WGMMA_ROWS):
-                for sched in getattr(fa, "SCHEDULES", ("",)):
-                    kw = {"rows": rows, **({"sched": sched} if sched else {})}
-                    try:
-                        fa.launch(**xi, **kw)
-                    except ValueError:   # a schedule this tile does not run
-                        continue
-                    key = "bf16 %%dx%%d rows=%%d%%s" %% (N, K, rows, " " + sched if sched else "")
-                    out[key] = cs.device_ms(lambda: fa.launch(**xi, **kw), iters=iters)
+            for rows in (r for r in fa.tile_options(K, bf16=True)
+                         if N < 32768 or r >= fa.WGMMA_ROWS):
+                key = "bf16 %%dx%%d rows=%%d" %% (N, K, rows)
+                out[key] = cs.device_ms(lambda: fa.launch(**xi, rows=rows), iters=iters)
     del x
 print("TURN " + json.dumps(out))
 """
 
 
-def turn(checkout: str, dtypes, tiles: bool) -> dict:
-    proc = subprocess.run([sys.executable, "-c", TURN % (SHAPES, dtypes, tiles)], cwd=checkout,
+def turn(checkout: str, shapes, dtypes, tiles: bool) -> dict:
+    proc = subprocess.run([sys.executable, "-c", TURN % (shapes, dtypes, tiles)], cwd=checkout,
                           capture_output=True, text=True, timeout=900)
     line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TURN ")), None)
     if proc.returncode or line is None:
@@ -90,10 +90,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
     ap.add_argument("--tiles", action="store_true",
-                    help="also every bf16 wgmma tile (and schedule) at the K=8 shapes")
+                    help="also every bf16 tile at the query shapes and every bf16 wgmma "
+                         "tile at the K=8 step shapes")
     ap.add_argument("--pairs", type=int, default=2, help="pairs of turns (at least 2)")
     ap.add_argument("--dtype", choices=("both", "f32", "bf16"), default="both")
     ap.add_argument("--out", default="")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated N:K pairs to time instead of the default shapes")
     args = ap.parse_args()
     if args.pairs < 2:
         ap.error("--pairs must be at least 2")
@@ -102,10 +105,15 @@ def main() -> int:
     card = cs.card_line()
     other = os.path.abspath(args.other)
     dtypes = ("f32", "bf16") if args.dtype == "both" else (args.dtype,)
+    shapes = SHAPES
+    if args.shapes:
+        shapes = tuple((int(n), int(k), 50) for n, k in
+                       (pair.split(":") for pair in args.shapes.split(",")))
     runs = {"other": [], "this": []}
     for i in range(args.pairs):
         for name in (("other", "this") if i % 2 == 0 else ("this", "other")):
-            runs[name].append(turn(other if name == "other" else ROOT, dtypes, args.tiles))
+            runs[name].append(turn(other if name == "other" else ROOT, shapes, dtypes,
+                                    args.tiles))
             print(f"{name}: {runs[name][-1]}", flush=True)
     print(f"fused_agg kernel ms, other = {other}, this = {ROOT}; {card}")
     summary = {}

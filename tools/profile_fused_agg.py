@@ -6,7 +6,9 @@
 Builds a copy of nerfloc_tpu_torch/csrc/fused_agg.cu in which thread 0 of
 every CTA records clock64() after each of its barriers (the consumer
 barrier of fused_agg_kernel, the first warpgroup's barrier of
-fused_agg_wide; the shipped kernel carries no instrumentation), launches it
+fused_agg_wide, the CTA and cluster barriers of fused_agg_cluster, which
+runs the bf16 16-row tiles; the shipped kernel carries no
+instrumentation), launches it
 at the query shapes (N=1024 with K=8 and K=1) and at the render shape
 (N=262144, K=8) for each tile size, and prints the median cycles of each
 phase over the first 512 CTAs, labelled with the source line the barrier
@@ -42,8 +44,10 @@ MAX_STAMPS = 32
 # kernel: (first line of its stamped body, the text after it, its barrier)
 KERNELS = {
     "tile": ("  const int n0 = blockIdx.x * T;", "\n// ---- wide bf16 tiles",
-             "bar_consumers(kConsThreads);"),
-    "wide": ("  const int twg = a.T / NWG;", "\nstruct Plan", "bar_wg(wg);"),
+             ("bar_consumers(kConsThreads);",)),
+    "wide": ("  const int twg = a.T / NWG;", "\n// ---- bf16 cluster tiles", ("bar_wg(wg);",)),
+    "cluster": ("  const int t_valid = max(0, min(T, a.N - n0));   // CTAs past N only hold weights",
+                "\n// the k-steps of the products a launch runs", ("__syncthreads();", "cluster_sync();")),
 }
 KSTEP_NAMES = ("ring full wait", "wgmma issue", "stage-end wait_group", "slot release",
                "fc0 block end: wait_group 0 + rounding")
@@ -127,7 +131,7 @@ def sm_clock_mhz() -> float:
         return float("nan")
 
 
-def _stamp_body(lines: list[str], line0: int, barrier: str) -> tuple[list[str], list[str]]:
+def _stamp_body(lines: list[str], line0: int, barriers) -> tuple[list[str], list[str]]:
     """A stamp after every barrier line, before the K=1 return and at the
     end of one kernel's body (lines, ending with its closing brace)."""
     labels, out = ["start"], []
@@ -146,7 +150,7 @@ def _stamp_body(lines: list[str], line0: int, barrier: str) -> tuple[list[str], 
             out.append(f"    STAMP({len(labels)})")
             labels.append(f"line {line0 + i}: {code_before(i)} (K=1 end)")
         out.append(line)
-        if barrier in line:
+        if any(b in line and "void " not in line for b in barriers):
             out.append(f"  STAMP({len(labels)})")
             labels.append(f"line {line0 + i}: {code_before(i)}")
     out.append(f"  STAMP({len(labels)})")
@@ -163,7 +167,7 @@ def stamped_source() -> tuple[str, dict]:
     the code it closes)."""
     src = open(SRC).read()
     labels = {}
-    for name, (first, after, barrier) in KERNELS.items():
+    for name, (first, after, barriers) in KERNELS.items():
         if first not in src:
             continue
         start = src.index(first)
@@ -171,7 +175,7 @@ def stamped_source() -> tuple[str, dict]:
         line0 = src[:start].count("\n") + 1
         lines = src[start:end].rstrip().split("\n")
         assert lines[-1] == "}"
-        out, labels[name] = _stamp_body(lines, line0, barrier)
+        out, labels[name] = _stamp_body(lines, line0, barriers)
         src = src[:start] + "  STAMP(0)\n" + "\n".join(out) + "\n" + src[end:]
     src = src.replace("namespace {\n",
                       f"__device__ long long g_stamps[{MAX_CTAS * MAX_STAMPS}];\n"
@@ -191,6 +195,8 @@ def stamped_source() -> tuple[str, dict]:
 
 
 def kernel_of(fa, rows: int, bf16: bool) -> str:
+    if bf16 and fa.tile_cluster(rows, bf16):
+        return "cluster"
     return "wide" if bf16 and rows >= fa.WGMMA_ROWS else "tile"
 
 
