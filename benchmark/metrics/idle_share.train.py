@@ -1,0 +1,6 @@
+"""% of the profiled train steps with no device activity."""
+from harness import readers
+
+
+def read(r):
+    return readers.idle_share(r, "train")
