@@ -47,6 +47,7 @@ from ..geometry.embedder import Embedder, position_embedding_sine
 from ..ops.interp import bilinear_sample
 from ..ops.knn import topk_first
 from ..solve.pnp import gumbel_noise, ransac_pnp
+from ..utils.profiling import span
 from .appearance import AppearanceAdaptLayer, appearance_embedding
 from .backbone import Backbone2D
 from .fields.conditional_nerf import ConditionalNeRF
@@ -315,9 +316,13 @@ class NerfPoseEstimator(nn.Module):
         return self.model_3d.query_coarse(ctx, points=pts_all[idx])
 
     def localize_parts(self, batch: Mapping[str, Tensor], kp_gumbel: Tensor):
-        ctx, q2d = self.build_context(batch)
-        desc_3d, pts3d, pts3d_ndc = self.keypoints(ctx, batch, kp_gumbel)
-        m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc)
+        with span("localize"):
+            with span("localize.context"):
+                ctx, q2d = self.build_context(batch)
+            with span("localize.keypoints"):
+                desc_3d, pts3d, pts3d_ndc = self.keypoints(ctx, batch, kp_gumbel)
+            with span("localize.match"):
+                m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc)
         return ctx, q2d, desc_3d, pts3d, pts3d_ndc, m
 
     def match_cascade(self, ctx: SceneContext, q2d, batch: Mapping[str, Tensor],
@@ -385,7 +390,8 @@ class NerfPoseEstimator(nn.Module):
             kp_gumbel = gumbel_noise((self.n_coarse_points(batch),), generator, dev)
         if ray_idx is None and cfg.train_nerf:
             ray_idx = torch.randperm(H * W, generator=generator, device=dev)[:cfg.render.N_rand]
-        ctx, q2d = self.build_context(batch)
+        with span("forward.context"):
+            ctx, q2d = self.build_context(batch)
         out: Dict[str, Tensor] = {}
         loss = torch.zeros((), device=dev)
         if cfg.train_pose:
@@ -393,7 +399,8 @@ class NerfPoseEstimator(nn.Module):
             pairs = self.build_3d_2d_pairs(pts3d, batch["depth"], batch["K"], batch["pose"],
                                            H, W, q2d["stride_coarse"],
                                            cfg.matching.coarse_matching_depth_thresh)
-            m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs)
+            with span("forward.match"):
+                m = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs)
             out.update({k: m[k] for k in ("coarse_loss", "fine_loss", "fine_err",
                                           "match_j", "match_mask")})
             out["j_gt"], out["gt_mask"] = pairs[:2]
@@ -401,8 +408,9 @@ class NerfPoseEstimator(nn.Module):
             loss = _weighted(loss, cfg.fine_loss_weight, m["fine_loss"])
             if cfg.cascade_matching:
                 vis = select_visible_mask(pts3d, batch["pose"], batch["K"], H, W)
-                m2 = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs,
-                                kp_mask=vis, second=True)
+                with span("forward.match"):
+                    m2 = self.match(ctx, q2d, batch, desc_3d, pts3d, pts3d_ndc, pairs=pairs,
+                                    kp_mask=vis, second=True)
                 out["coarse_loss2"], out["fine_loss2"] = m2["coarse_loss"], m2["fine_loss"]
                 loss = _weighted(loss, cfg.coarse_loss_weight, m2["coarse_loss"])
                 loss = _weighted(loss, cfg.fine_loss_weight, m2["fine_loss"])
@@ -411,8 +419,9 @@ class NerfPoseEstimator(nn.Module):
             ctx.sv, depths_gt)
         loss = _weighted(loss, cfg.ref_depth_loss_weight, out["ref_depth_loss"])
         if cfg.train_nerf:
-            out["render_loss"], out["psnr"] = self.compute_render_loss(ctx, q2d, batch,
-                                                                       ray_idx)
+            with span("forward.render"):
+                out["render_loss"], out["psnr"] = self.compute_render_loss(ctx, q2d, batch,
+                                                                           ray_idx)
             loss = _weighted(loss, cfg.render_loss_weight, out["render_loss"])
         out["loss"] = loss
         return out

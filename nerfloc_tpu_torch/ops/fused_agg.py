@@ -49,6 +49,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import native
 
 Tensor = torch.Tensor
@@ -613,19 +614,20 @@ class _FusedAgg(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        freqs = saved[7]
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(saved[:7] + saved[8:],
-                      ctx.needs_input_grad[:7] + ctx.needs_input_grad[8:])]
-        with torch.enable_grad():
-            out = reference_agg(*inputs[:7],
-                                dict(zip(PARAM_KEYS, inputs[7:])), freqs,
-                                dtype=inputs[2].dtype)
-            wrt = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        res = [next(grads) if t.requires_grad else None for t in inputs]
-        return (*res[:7], None, *res[7:])
+        with span("fused_agg.replay"):
+            saved = ctx.saved_tensors
+            freqs = saved[7]
+            inputs = [t.detach().requires_grad_(need) for t, need in
+                      zip(saved[:7] + saved[8:],
+                          ctx.needs_input_grad[:7] + ctx.needs_input_grad[8:])]
+            with torch.enable_grad():
+                out = reference_agg(*inputs[:7],
+                                    dict(zip(PARAM_KEYS, inputs[7:])), freqs,
+                                    dtype=inputs[2].dtype)
+                wrt = [t for t in inputs if t.requires_grad]
+                grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+            res = [next(grads) if t.requires_grad else None for t in inputs]
+            return (*res[:7], None, *res[7:])
 
 
 def fused_neighbor_agg(xyz: Tensor, direction: Tensor, mv_agg: Tensor,

@@ -23,6 +23,7 @@ import torch
 from ..geometry.cameras import rays_for_pixels
 from ..geometry.se3 import se3_exp_map, se3_log_map
 from ..ops.knn import topk_first
+from ..utils.profiling import span
 from .pnp import gumbel_noise
 
 Tensor = torch.Tensor
@@ -43,44 +44,47 @@ def refine_pose(render_fn: RenderFn, pose_init: Tensor, K: Tensor, rgb_image: Te
     is no higher than the initial pose's, at least half as many rays see
     the scene, and it is finite, else pose_init. `trace`, when given,
     receives each step's loss (0-d tensors, before the step's update)."""
-    target = rgb_image[uv[:, 1].long(), uv[:, 0].long()]
+    with span("refine"):
+        target = rgb_image[uv[:, 1].long(), uv[:, 0].long()]
 
-    def loss_fn(twist: Tensor):
-        pose = se3_exp_map(twist)
-        out = render_fn(*rays_for_pixels(uv, K, pose), pose)
-        m = out["mask"].to(target.dtype)[:, None]
-        n_valid = torch.sum(m)
-        loss = torch.sum(((out["rgb"] - target) * m) ** 2) / torch.clamp(n_valid, min=1.0)
-        return loss, n_valid
+        def loss_fn(twist: Tensor):
+            with span("refine.render"):
+                pose = se3_exp_map(twist)
+                out = render_fn(*rays_for_pixels(uv, K, pose), pose)
+                m = out["mask"].to(target.dtype)[:, None]
+                n_valid = torch.sum(m)
+                loss = torch.sum(((out["rgb"] - target) * m) ** 2) / torch.clamp(n_valid, min=1.0)
+            return loss, n_valid
 
-    with torch.no_grad():
-        twist0 = se3_log_map(pose_init)
-    twist = twist0
-    mu, nu = torch.zeros_like(twist0), torch.zeros_like(twist0)
-    for count in range(1, max_steps + 1):
-        t = twist.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss, _ = loss_fn(t)
-            (g,) = torch.autograd.grad(loss, t)
-        loss = loss.detach()
         with torch.no_grad():
-            mu = (1 - B1) * g + B1 * mu
-            nu = (1 - B2) * g * g + B2 * nu
-            # bias corrections in f32 as optax computes them, as host
-            # scalars (a copy to the device would wait for it)
-            mu_hat = mu / float(np.float32(1) - np.float32(B1) ** np.float32(count))
-            nu_hat = nu / float(np.float32(1) - np.float32(B2) ** np.float32(count))
-            new = twist - lr * (mu_hat / (torch.sqrt(nu_hat) + EPS))
-            ok = torch.isfinite(loss) & torch.isfinite(new).all()
-            twist = torch.where(ok, new, twist)
-        if trace is not None:
-            trace.append(loss)
-    with torch.no_grad():
-        loss0, n0 = loss_fn(twist0)
-        final_loss, n_f = loss_fn(twist)
-        pose_f = se3_exp_map(twist)
-        accept = (final_loss <= loss0) & (n_f >= 0.5 * n0) & torch.isfinite(pose_f).all()
-        return torch.where(accept, pose_f, pose_init)
+            twist0 = se3_log_map(pose_init)
+        twist = twist0
+        mu, nu = torch.zeros_like(twist0), torch.zeros_like(twist0)
+        for count in range(1, max_steps + 1):
+            t = twist.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss, _ = loss_fn(t)
+                with span("refine.grad"):
+                    (g,) = torch.autograd.grad(loss, t)
+            loss = loss.detach()
+            with torch.no_grad():
+                mu = (1 - B1) * g + B1 * mu
+                nu = (1 - B2) * g * g + B2 * nu
+                # bias corrections in f32 as optax computes them, as host
+                # scalars (a copy to the device would wait for it)
+                mu_hat = mu / float(np.float32(1) - np.float32(B1) ** np.float32(count))
+                nu_hat = nu / float(np.float32(1) - np.float32(B2) ** np.float32(count))
+                new = twist - lr * (mu_hat / (torch.sqrt(nu_hat) + EPS))
+                ok = torch.isfinite(loss) & torch.isfinite(new).all()
+                twist = torch.where(ok, new, twist)
+            if trace is not None:
+                trace.append(loss)
+        with torch.no_grad():
+            loss0, n0 = loss_fn(twist0)
+            final_loss, n_f = loss_fn(twist)
+            pose_f = se3_exp_map(twist)
+            accept = (final_loss <= loss0) & (n_f >= 0.5 * n0) & torch.isfinite(pose_f).all()
+            return torch.where(accept, pose_f, pose_init)
 
 
 def sample_refine_pixels(H: int, W: int, n: int, target_mask: Optional[Tensor] = None,

@@ -31,6 +31,7 @@ from ..configs import Config
 from ..solve.pnp import count_pose_inliers, gumbel_noise, ransac_pnp
 from ..solve.pose_refine import refine_pose, sample_refine_pixels
 from ..utils.metrics import compute_pose_error, matching_iou
+from ..utils.profiling import span
 from .state import TrainState, flat_grads
 
 Tensor = torch.Tensor
@@ -83,43 +84,47 @@ def make_train_step(model, cfg: Config, group: Optional[dist.ProcessGroup] = Non
                    generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         if state.model is not model:
             raise ValueError("train_step: the state holds another model")
-        B = batch["image"].shape[0]
-        if group is not None:
-            n, r = dist.get_world_size(group), dist.get_rank(group)
-            if kp_gumbel is None:
-                kp_gumbel, drawn_idx = _global_noise(model, cfg, batch, n * B, generator)
-                ray_idx = drawn_idx if ray_idx is None else ray_idx
-            rows = slice(r * B, (r + 1) * B)
-            kp_gumbel = kp_gumbel[rows]
-            ray_idx = None if ray_idx is None else ray_idx[rows]
-        model.zero_grad(set_to_none=True)
-        sums: Dict[str, Tensor] = {}
-        for b in range(B):
-            out = model.train_forward(
-                {k: v[b] for k, v in batch.items()},
-                kp_gumbel=None if kp_gumbel is None else kp_gumbel[b],
-                ray_idx=None if ray_idx is None else ray_idx[b], generator=generator)
-            (out["loss"] / B).backward()
-            vals = {k: out[k].detach() for k in METRICS if k in out}
-            if "match_j" in out:
-                vals["matching_iou"] = matching_iou(out["match_j"], out["match_mask"],
-                                                    out["j_gt"], out["gt_mask"])
-            for k, v in vals.items():
-                sums[k] = sums[k] + v if k in sums else v
-            del out
-        metrics = {k: v / B for k, v in sums.items()}
-        g = flat_grads(state.params)
-        if group is not None:
-            n = dist.get_world_size(group)
-            dist.all_reduce(g, group=group)
-            g = g / n
-            names = sorted(metrics)
-            means = torch.stack([metrics[k].float() for k in names])
-            dist.all_reduce(means, group=group)
-            metrics = dict(zip(names, means / n))
-        metrics["grad_norm"] = torch.sqrt(torch.sum(g * g))
-        state.apply_gradients(g)
-        return metrics
+        with span("step"):
+            B = batch["image"].shape[0]
+            if group is not None:
+                n, r = dist.get_world_size(group), dist.get_rank(group)
+                if kp_gumbel is None:
+                    kp_gumbel, drawn_idx = _global_noise(model, cfg, batch, n * B, generator)
+                    ray_idx = drawn_idx if ray_idx is None else ray_idx
+                rows = slice(r * B, (r + 1) * B)
+                kp_gumbel = kp_gumbel[rows]
+                ray_idx = None if ray_idx is None else ray_idx[rows]
+            model.zero_grad(set_to_none=True)
+            sums: Dict[str, Tensor] = {}
+            for b in range(B):
+                with span("forward"):
+                    out = model.train_forward(
+                        {k: v[b] for k, v in batch.items()},
+                        kp_gumbel=None if kp_gumbel is None else kp_gumbel[b],
+                        ray_idx=None if ray_idx is None else ray_idx[b], generator=generator)
+                with span("backward"):
+                    (out["loss"] / B).backward()
+                vals = {k: out[k].detach() for k in METRICS if k in out}
+                if "match_j" in out:
+                    vals["matching_iou"] = matching_iou(out["match_j"], out["match_mask"],
+                                                        out["j_gt"], out["gt_mask"])
+                for k, v in vals.items():
+                    sums[k] = sums[k] + v if k in sums else v
+                del out
+            metrics = {k: v / B for k, v in sums.items()}
+            with span("update"):
+                g = flat_grads(state.params)
+                if group is not None:
+                    n = dist.get_world_size(group)
+                    dist.all_reduce(g, group=group)
+                    g = g / n
+                    names = sorted(metrics)
+                    means = torch.stack([metrics[k].float() for k in names])
+                    dist.all_reduce(means, group=group)
+                    metrics = dict(zip(names, means / n))
+                metrics["grad_norm"] = torch.sqrt(torch.sum(g * g))
+                state.apply_gradients(g)
+            return metrics
 
     return train_step
 
@@ -147,19 +152,23 @@ def make_eval_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
         ctx, q2d, desc_3d, pts3d, pts3d_ndc, m = model.localize_parts(b, kp)
 
         def solve(mm, gumbel):
-            return ransac_pnp(mm["mkps2d_f"], mm["mkps3d"], mm["pair_mask"], b["K"],
-                              thresh_px=cfg.ransac_thresh, n_hyps=cfg.shapes.pnp_hypotheses,
-                              gumbel=gumbel, generator=generator)
+            with span("pnp"):
+                return ransac_pnp(mm["mkps2d_f"], mm["mkps3d"], mm["pair_mask"], b["K"],
+                                  thresh_px=cfg.ransac_thresh,
+                                  n_hyps=cfg.shapes.pnp_hypotheses, gumbel=gumbel,
+                                  generator=generator)
         pnp = solve(m, noise.get("pnp_gumbel"))
         pose, num_inliers = pnp.c2w, pnp.num_inliers
         if cfg.cascade_matching:
-            m2 = model.match_cascade(ctx, q2d, b, desc_3d, pts3d, pts3d_ndc, pose)
+            with span("cascade"):
+                m2 = model.match_cascade(ctx, q2d, b, desc_3d, pts3d, pts3d_ndc, pose)
             pnp2 = solve(m2, noise.get("pnp2_gumbel"))
             # the cascade pose must explain the first pass's matches nearly
             # as well as the first pose: a re-match seeded by a bad pose can
             # find enough chance inliers among its own pairs
-            n2_on_m = count_pose_inliers(pnp2.c2w, m["mkps2d_f"], m["mkps3d"],
-                                         m["pair_mask"], b["K"], cfg.ransac_thresh)
+            with span("cascade"):
+                n2_on_m = count_pose_inliers(pnp2.c2w, m["mkps2d_f"], m["mkps3d"],
+                                             m["pair_mask"], b["K"], cfg.ransac_thresh)
             use2 = pnp2.success & (n2_on_m.float() >= CASCADE_SLACK * num_inliers.float())
             pose = torch.where(use2, pnp2.c2w, pose)
             num_inliers = torch.where(use2, pnp2.num_inliers, num_inliers)
@@ -195,9 +204,11 @@ def make_eval_step(model, cfg: Config) -> Callable[..., Dict[str, Tensor]]:
         gens = list(generator) if isinstance(generator, (list, tuple)) else [generator] * B
         if len(gens) != B:
             raise ValueError(f"eval_step: {len(gens)} generators for {B} queries")
-        outs = [one({k: v[i] for k, v in batch.items()}, gens[i],
-                    {k: v[i] for k, v in (noise or {}).items()})
-                for i in range(B)]
+        outs = []
+        for i in range(B):
+            with span("query"):
+                outs.append(one({k: v[i] for k, v in batch.items()}, gens[i],
+                                {k: v[i] for k, v in (noise or {}).items()}))
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return eval_step

@@ -1,58 +1,97 @@
-"""Phase timing and tracing (counterpart of nerfloc_tpu/utils/profiling.py):
-`PhaseTimer` accumulates wall time per named phase, fencing the device
-at a phase's end when given a tensor; `trace` records a torch.profiler
-trace into a directory (TensorBoard's format) or does nothing."""
+"""The port's tracer: named spans at its layer boundaries.
+
+    with span("refine.render"):
+        ...
+
+Off (the default), `span` tests one flag and returns a shared null
+context: no profiler range, no event, no synchronize, no allocation. On
+(`enable(True)`), a span opens the profiler range "span:<name>", so a
+torch.profiler trace shows it on the kernels' clock, and keeps a `Span`
+record in memory: its name, the span open around it on its thread, its
+item, its thread and its host clock (time.perf_counter_ns) at both ends.
+Nothing is written anywhere; `records()` hands the records over and
+`clear()` drops them.
+
+The root spans `query` and `step` each take a new item number (from 0
+after `clear()`); every span opened until the root closes, on any thread
+(the autograd engine's, which runs a backward on CUDA tensors, too),
+carries it. The item is the process's current one: queries and steps run
+one at a time. Spans outside a root carry item -1.
+"""
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
+ROOTS = ("query", "step")
 
-class PhaseTimer:
-    """Wall seconds and counts per phase name. `fence`: a tensor (or any
-    object) whose device is synchronised before the phase's clock stops,
-    so a CUDA phase counts its kernels and not only their launch."""
 
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+class Span(NamedTuple):
+    name: str
+    parent: Optional[str]     # the span open around it on its thread
+    item: int
+    thread: int
+    start_ns: int
+    end_ns: int
 
-    @contextlib.contextmanager
-    def phase(self, name: str, fence=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if torch.is_tensor(fence) and fence.is_cuda:
-                torch.cuda.synchronize(fence.device)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
 
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": self.totals[k], "count": self.counts[k],
-                    "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1)}
-                for k in self.totals}
+_on = False
+_NULL = contextlib.nullcontext()
+_records: List[Span] = []
+_items = itertools.count()
+_item = -1
+_local = threading.local()     # .open: the names of this thread's open spans
 
-    def report(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        return "\n".join(f"{k:30s} {v:8.3f}s  x{self.counts[k]}" for k, v in rows)
+
+def enable(on: bool) -> None:
+    """Turn the spans on or off (records kept so far stay)."""
+    global _on
+    _on = bool(on)
+
+
+def records() -> List[Span]:
+    """The spans closed since the last clear(), in the order they closed."""
+    return list(_records)
+
+
+def clear() -> None:
+    """Drop the records and number the next root's item 0."""
+    global _items
+    _records.clear()
+    _items = itertools.count()
+
+
+def span(name: str):
+    """A context manager around one layer's call (see the module's note)."""
+    if not _on:
+        return _NULL
+    return _span(name)
 
 
 @contextlib.contextmanager
-def trace(log_dir: Optional[str]):
-    """A torch.profiler trace of the block (CPU, and CUDA where available)
-    written to log_dir; without log_dir, nothing."""
-    if not log_dir:
-        yield
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
-        yield
+def _span(name: str):
+    global _item
+    opened = getattr(_local, "open", None)
+    if opened is None:
+        opened = _local.open = []
+    parent = opened[-1] if opened else None
+    root, outer = name in ROOTS, _item
+    if root:
+        _item = next(_items)
+    item = _item
+    opened.append(name)
+    start = time.perf_counter_ns()
+    try:
+        with torch.profiler.record_function("span:" + name):
+            yield
+    finally:
+        end = time.perf_counter_ns()
+        opened.pop()
+        if root:
+            _item = outer
+        _records.append(Span(name, parent, item, threading.get_ident(), start, end))

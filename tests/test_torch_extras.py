@@ -1,12 +1,9 @@
 """The port's last utilities against the JAX package on the CPU:
 geometry/transforms_extra.py (mirroring tests/test_colmap_scene.py::
-test_transform_extras, plus values against JAX), utils/profiling.py
-(mirroring tests/test_misc.py::test_profiling_phase_timer) and
-utils/common.AttrDict. Bounds: f32 values within 1e-6 (the perturbation
-1e-5), arccos gradients 1e-3 relative (see there)."""
-import os
-import time
-
+test_transform_extras, plus values against JAX) and utils/common.AttrDict
+(the port's tracer, utils/profiling.py, is tests/test_torch_tracing.py's).
+Bounds: f32 values within 1e-6 (the perturbation 1e-5), arccos gradients
+1e-3 relative (see there)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +14,6 @@ from nerfloc_tpu.geometry import transforms_extra as jx
 from nerfloc_tpu.utils.common import AttrDict as JAttrDict
 from nerfloc_tpu_torch.geometry import transforms_extra as tx
 from nerfloc_tpu_torch.utils.common import AttrDict
-from nerfloc_tpu_torch.utils.profiling import PhaseTimer, trace
 
 
 def test_transform_extras():
@@ -66,30 +62,6 @@ def test_acos_linear_extrapolation_value_and_gradient_match_jax():
     # keeps a 1e-4 share of x's bits, so 1e-3 relative
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want[1]), rtol=1e-3, atol=1e-5)
     assert np.isfinite(xt.grad.numpy()).all()
-
-
-def test_profiling_phase_timer():
-    t = PhaseTimer()
-    with t.phase("a"):
-        time.sleep(0.01)
-    with t.phase("a", fence=torch.zeros(2)):
-        time.sleep(0.01)
-    with t.phase("b"):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2
-    assert s["a"]["total_s"] >= 0.02
-    assert "a" in t.report() and "b" in t.report()
-
-
-def test_trace_writes_a_profile_only_with_a_directory(tmp_path):
-    with trace(None):
-        torch.ones(4).sum()
-    assert list(tmp_path.iterdir()) == []
-    with trace(str(tmp_path)):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    files = [f for _, _, fs in os.walk(tmp_path) for f in fs]
-    assert any(f.endswith(".json") or f.endswith(".json.gz") for f in files), files
 
 
 def test_attr_dict_matches_jax_package():
