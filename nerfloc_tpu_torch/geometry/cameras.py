@@ -21,9 +21,17 @@ def pixel_grid(H: int, W: int, like: Tensor) -> Tensor:
     return torch.stack([uu, vv], dim=-1)
 
 
-def transform_points(T: Tensor, pts: Tensor) -> Tensor:
-    """Apply a 4x4 (or 3x4) rigid transform to [..., 3] points."""
-    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., :3, 3]
+def views_times(x: Tensor, M: Tensor) -> Tensor:
+    """x[v] @ M[v] for each view: x [V, P, 3], M [V, 3, 3] -> [V, P, 3].
+
+    One product of all views' rows with every view's M ([V*P, 3] @
+    [3, 3V]), of which each view keeps its own block: each element is
+    summed as one matrix product sums it, whatever P (on the CPU an FMA
+    chain over k, as the JAX package's dots; a batched product of few rows
+    takes another path there). The V-fold work is 3V columns a row."""
+    V, P, _ = x.shape
+    out = x.reshape(V * P, 3) @ M.permute(1, 0, 2).reshape(3, 3 * V)
+    return out.view(V, P, V, 3).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
 
 
 def world_to_camera(c2w: Tensor, pts_w: Tensor) -> Tensor:
@@ -42,13 +50,19 @@ def camera_project(pts_cam: Tensor, K: Tensor, eps: float = 1e-8
     return uvz[..., 0] / denom, uvz[..., 1] / denom, z
 
 
+def camera_dirs(H: int, W: int, K: Tensor) -> Tensor:
+    """Camera-frame directions ((u - cx) / fx, (v - cy) / fy, 1) of the
+    pixels of cameras K [..., 3, 3] -> [..., H, W, 3]."""
+    uv = pixel_grid(H, W, K)
+    k = K[..., None, None, :, :]
+    x = (uv[..., 0] - k[..., 0, 2]) / k[..., 0, 0]
+    y = (uv[..., 1] - k[..., 1, 2]) / k[..., 1, 1]
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
 def get_rays(H: int, W: int, K: Tensor, c2w: Tensor) -> Tuple[Tensor, Tensor]:
     """Per-pixel world rays (rays_o [H,W,3], unit rays_d [H,W,3])."""
-    uv = pixel_grid(H, W, K)
-    dirs = torch.stack([(uv[..., 0] - K[0, 2]) / K[0, 0],
-                        (uv[..., 1] - K[1, 2]) / K[1, 1],
-                        torch.ones_like(uv[..., 0])], dim=-1)
-    rays_d = dirs @ c2w[:3, :3].T
+    rays_d = camera_dirs(H, W, K) @ c2w[:3, :3].T
     rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     return c2w[:3, 3].expand_as(rays_d), rays_d
 
@@ -65,17 +79,15 @@ def rays_for_pixels(uv: Tensor, K: Tensor, c2w: Tensor) -> Tuple[Tensor, Tensor]
 
 
 def backproject_depth(depth: Tensor, K: Tensor, c2w: Tensor) -> Tuple[Tensor, Tensor]:
-    """[H, W] depth -> (world points [H,W,3], validity depth > 0)."""
-    H, W = depth.shape
-    uv = pixel_grid(H, W, depth)
-    x = (uv[..., 0] - K[0, 2]) / K[0, 0]
-    y = (uv[..., 1] - K[1, 2]) / K[1, 1]
-    pts_cam = torch.stack([x * depth, y * depth, depth], dim=-1)
-    return transform_points(c2w, pts_cam), depth > 0
+    """[V, H, W] depths of cameras K [V, 3, 3], c2w [V, 4, 4] -> (world
+    points [V, H, W, 3], validity depth > 0)."""
+    V, H, W = depth.shape
+    pts_cam = (camera_dirs(H, W, K) * depth[..., None]).reshape(V, H * W, 3)
+    pts = views_times(pts_cam, c2w[:, :3, :3].transpose(-1, -2)) + c2w[:, None, :3, 3]
+    return pts.reshape(V, H, W, 3), depth > 0
 
 
 def scale_intrinsics(K: Tensor, stride: float) -> Tensor:
-    """Divide the first two rows of K by `stride`."""
-    scale = torch.tensor([1.0 / stride, 1.0 / stride, 1.0], dtype=K.dtype,
-                         device=K.device)
-    return K * scale[:, None]
+    """The first two rows of K [..., 3, 3] times 1 / stride (rounded to
+    K's dtype), the third as it is."""
+    return torch.cat([K[..., :2, :] * (1.0 / stride), K[..., 2:, :]], dim=-2)

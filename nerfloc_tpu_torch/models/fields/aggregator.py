@@ -25,8 +25,7 @@ from ...ops.interp import (bilinear_sample_views, bilinear_sample_views_map_grad
 from ...ops.knn import topk_first
 from ..lowp import F32, const, dense
 from . import neuray
-from .projector import (Projection, compute_projections, feature_uv_scale,
-                        project_and_sample)
+from .projector import Projection, compute_projections, feature_uv, project_and_sample
 
 Tensor = torch.Tensor
 ALPHA_GROUND_STATE = -15.0   # alpha logit of empty space (guided sampling)
@@ -86,7 +85,7 @@ class MultiviewFeatureAggregator(nn.Module):
         proj = compute_projections(xyz, sv.Ks, sv.poses, H, W)
         valid = _rf_valid(proj, H, W)
         h, w = sv.vis_featmaps.shape[1:3]
-        uv_f = proj.uv * feature_uv_scale(h, w, H, W, xyz)
+        uv_f = feature_uv(proj.uv, h, w, H, W)
         if vis_packed is not None:
             ray_feats = packed_bilinear_sample_views(vis_packed, h, w, uv_f)
         else:
@@ -172,7 +171,7 @@ class MultiviewFeatureAggregator(nn.Module):
                     raise ValueError("samples requires the matching proj")
                 proj = compute_projections(xyz, sv.Ks, sv.poses, H, W)
             h, w = featmaps.shape[1:3]
-            uv_f = proj.uv * feature_uv_scale(h, w, H, W, xyz)
+            uv_f = feature_uv(proj.uv, h, w, H, W)
             if samples is not None:
                 rgb, fused = samples
             elif render_table is not None and rgb_packed is not None:
@@ -209,8 +208,8 @@ class MultiviewFeatureAggregator(nn.Module):
         order of the views."""
         V, H, W = sv.images.shape[:3]
         h, w = featmaps.shape[1:3]
-        scale = feature_uv_scale(h, w, H, W, proj.uv)
-        ray_feats = packed_bilinear_sample_views(vis_packed, h, w, proj.uv * scale)
+        ray_feats = packed_bilinear_sample_views(vis_packed, h, w,
+                                                 feature_uv(proj.uv, h, w, H, W))
         valid = _rf_valid(proj, H, W)
         ray_feats = ray_feats * valid[..., None].to(ray_feats.dtype)
         vis_all, dd_all = self._decode_visibility(sv, ray_feats, proj.depth, valid)
@@ -218,7 +217,8 @@ class MultiviewFeatureAggregator(nn.Module):
         sel = topk_first(vis_T, min(prune_k, V))[1]                     # [N, k]
         uv_sel = torch.gather(proj.uv.transpose(0, 1), 1,
                               sel[..., None].expand(-1, -1, 2))         # [N, k, 2]
-        feat = packed_bilinear_sample_selected(feat_packed, h, w, uv_sel * scale, sel)
+        feat = packed_bilinear_sample_selected(feat_packed, h, w,
+                                               feature_uv(uv_sel, h, w, H, W), sel)
         rgb = packed_bilinear_sample_selected(rgb_packed, H, W, uv_sel, sel)
         rgb_feat = torch.cat([rgb, feat], dim=-1)
         vis = torch.gather(vis_T, 1, sel)[..., None].to(rgb_feat.dtype)

@@ -44,13 +44,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...configs import Config
-from ...geometry.cameras import get_rays, scale_intrinsics, world_to_camera
+from ...geometry.cameras import (backproject_depth, camera_dirs, get_rays, scale_intrinsics,
+                                 views_times, world_to_camera)
 from ...geometry.embedder import Embedder
 from ...geometry.math import safe_normalize, safe_sqrt
 from ...ops.fused_agg import extract_agg_params, fused_neighbor_agg
-from ...ops.interp import (pack_bilinear_corners, pack_render_table,
+from ...ops.interp import (nearest_indices, pack_bilinear_corners, pack_render_table,
                            packed_bilinear_sample_views, quantize_pack_bilinear_corners,
-                           resize_nearest, sample_render_table)
+                           sample_render_table)
 from ...ops.knn import (knn, knn_from_candidate_planes, knn_gather, knn_proj, knn_rays,
                         pack_xyz_window, split_bf16x3, topk_first, xyz_window_channels)
 from ..lowp import F32, add_bias, dense, leaky_relu, sigmoid, softmax, softplus
@@ -147,30 +148,28 @@ class ConditionalNeRF(nn.Module):
 
     def _backproject_level(self, sv: SupportViews, featmaps: Tensor,
                            stride: int) -> NeuralPoints:
-        """Every featmap pixel of every view becomes a point (mask depth>0)."""
+        """Every featmap pixel of every view becomes a point (mask depth>0),
+        all views at once."""
         V, H, Wd = sv.depths.shape
         h, w = H // stride, Wd // stride
-        pts, desc, dirs, masks = [], [], [], []
-        for img, depth, K, c2w, feat in zip(sv.images, sv.depths, sv.Ks,
-                                            sv.poses, featmaps):
-            Ks = scale_intrinsics(K, float(stride))
-            d = resize_nearest(depth, h, w)
-            im = resize_nearest(img, h, w)
-            _, rays_d = get_rays(h, w, Ks, c2w)
-            x = (torch.arange(w, dtype=d.dtype, device=d.device) - Ks[0, 2]) / Ks[0, 0]
-            y = (torch.arange(h, dtype=d.dtype, device=d.device) - Ks[1, 2]) / Ks[1, 1]
-            yy, xx = torch.meshgrid(y, x, indexing="ij")
-            pts_cam = torch.stack([xx * d, yy * d, d], dim=-1)
-            pts.append((pts_cam @ c2w[:3, :3].T + c2w[:3, 3]).reshape(-1, 3))
-            desc.append(torch.cat([im.to(self.dtype), feat.to(self.dtype)],
-                                  dim=-1).reshape(h * w, -1))
-            dirs.append(torch.cat([rays_d, d[..., None]], dim=-1).reshape(-1, 4))
-            masks.append((d > 0).reshape(-1))
-        pts_w, feature = torch.cat(pts), torch.cat(desc)
+        Ks = scale_intrinsics(sv.Ks, float(stride))
+        yi = nearest_indices(H, h, sv.depths.device)
+        xi = nearest_indices(Wd, w, sv.depths.device)
+        d = sv.depths[:, yi][:, :, xi]
+        im = sv.images[:, yi][:, :, xi]
+        pts_w, mask = backproject_depth(d, Ks, sv.poses)
+        pts_w = pts_w.reshape(-1, 3)
+        rays_d = views_times(camera_dirs(h, w, Ks).reshape(V, h * w, 3),
+                             sv.poses[:, :3, :3].transpose(-1, -2))
+        rays_d = (rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+                  ).reshape(V, h, w, 3)
+        feature = torch.cat([im.to(self.dtype), featmaps.to(self.dtype)],
+                            dim=-1).reshape(V * h * w, -1)
         return NeuralPoints(xyz=pts_w, xyz_ndc=world_to_camera(sv.poses[0], pts_w),
                             feature=feature,
                             confidence=torch.ones_like(feature[:, :1]),
-                            direction=torch.cat(dirs), mask=torch.cat(masks))
+                            direction=torch.cat([rays_d, d[..., None]], dim=-1).reshape(-1, 4),
+                            mask=mask.reshape(-1))
 
     def build_scene_context(self, images: Tensor, depths: Tensor, poses: Tensor,
                             Ks: Tensor, near: Tensor, far: Tensor,

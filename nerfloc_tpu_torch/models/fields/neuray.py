@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...geometry.cameras import backproject_depth, camera_project, world_to_camera
-from ...ops.interp import bilinear_sample, resize_bilinear_aa
+from ...geometry.cameras import backproject_depth, camera_project
+from ...ops.interp import bilinear_sample_views, resize_bilinear_aa
 from ..lowp import F32, conv, dense, normalize, sigmoid, softplus
 
 Tensor = torch.Tensor
@@ -204,26 +204,22 @@ class DepthFusionNet(nn.Module):
 def cross_view_diff_feats(images: Tensor, d_norm: Tensor, Ks: Tensor,
                           c2ws: Tensor, near: Tensor, far: Tensor) -> Tensor:
     """Masked mean/var over source views of |rgb_u - rgb_v| and the
-    inverse-depth disagreement -> [V, H, W, 8]."""
+    inverse-depth disagreement -> [V, H, W, 8]. The points of all V depth
+    maps are projected into all V source views at once ([V, V*H*W] pairs)."""
     V, H, W = d_norm.shape
     depth = from_inverse_normalized_depth(torch.clamp(d_norm, 0.0, 1.0), near, far)
-    pts = torch.stack([backproject_depth(d, K, T)[0]
-                       for d, K, T in zip(depth, Ks, c2ws)]).reshape(V * H * W, 3)
+    pts = backproject_depth(depth, Ks, c2ws)[0].reshape(V * H * W, 3)
     rgb_self = images.reshape(V * H * W, 3)
     inv_range = 1.0 / ((-1.0 / far) - (-1.0 / near))
-    rgb_d, dpt_d, valid = [], [], []
-    for img_u, depth_u, K_u, T_u in zip(images, depth, Ks, c2ws):
-        u, v, z = camera_project(world_to_camera(T_u, pts), K_u)
-        uv = torch.stack([u, v], dim=-1)
-        ok = ((torch.abs(z) >= 1e-4) & (u >= -0.5) & (u < W - 0.5)
-              & (v >= -0.5) & (v < H - 0.5))
-        rgb_s = bilinear_sample(img_u, uv)
-        dpt_s = bilinear_sample(depth_u[..., None], uv)[..., 0]
-        rgb_d.append(torch.abs(rgb_s - rgb_self))
-        dd = torch.abs(-1.0 / torch.clamp(dpt_s, min=1e-5) + 1.0 / torch.clamp(z, min=1e-5))
-        dpt_d.append(torch.clamp(torch.abs(dd * inv_range), max=1.5))
-        valid.append(ok.to(images.dtype))
-    rgb_d, dpt_d, valid = torch.stack(rgb_d), torch.stack(dpt_d), torch.stack(valid)
+    u, v, z = camera_project((pts - c2ws[:, None, :3, 3]) @ c2ws[:, :3, :3], Ks)
+    uv = torch.stack([u, v], dim=-1)
+    ok = ((torch.abs(z) >= 1e-4) & (u >= -0.5) & (u < W - 0.5)
+          & (v >= -0.5) & (v < H - 0.5))
+    rgb_d = torch.abs(bilinear_sample_views(images, uv) - rgb_self)
+    dpt_s = bilinear_sample_views(depth[..., None], uv)[..., 0]
+    dd = torch.abs(-1.0 / torch.clamp(dpt_s, min=1e-5) + 1.0 / torch.clamp(z, min=1e-5))
+    dpt_d = torch.clamp(torch.abs(dd * inv_range), max=1.5)
+    valid = ok.to(images.dtype)
     wsum = torch.clamp(valid.sum(0), min=1e-4)
     rgb_mean = (rgb_d * valid[..., None]).sum(0) / wsum[..., None]
     rgb_var = ((rgb_d - rgb_mean) ** 2 * valid[..., None]).sum(0) / wsum[..., None]

@@ -55,10 +55,13 @@ def compute_projections(xyz: Tensor, Ks: Tensor, c2ws: Tensor, H: int,
     return Projection(uv, z, z > 0, inbound)
 
 
-def feature_uv_scale(h: int, w: int, H: int, W: int, like: Tensor) -> Tensor:
-    """Image-pixel -> featmap-pixel factor of align-corners sampling."""
-    return torch.tensor([(w - 1.0) / (W - 1.0), (h - 1.0) / (H - 1.0)],
-                        dtype=like.dtype, device=like.device)
+def feature_uv(uv: Tensor, h: int, w: int, H: int, W: int) -> Tensor:
+    """Image-pixel coords uv [..., 2] of H x W images -> featmap-pixel coords
+    in h x w maps (align-corners sampling). The factors are made on uv's
+    device, so nothing is copied from the host: a linspace of two steps
+    holds exactly its two ends, rounded to uv's dtype."""
+    return uv * torch.linspace((w - 1.0) / (W - 1.0), (h - 1.0) / (H - 1.0), 2,
+                               dtype=uv.dtype, device=uv.device)
 
 
 def project_and_sample(xyz: Tensor, Ks: Tensor, c2ws: Tensor, images: Tensor,
@@ -69,7 +72,7 @@ def project_and_sample(xyz: Tensor, Ks: Tensor, c2ws: Tensor, images: Tensor,
     h, w = featmaps.shape[1], featmaps.shape[2]
     proj = compute_projections(xyz, Ks, c2ws, H, W)
     rgb = bilinear_sample_views(images, proj.uv)
-    feat = bilinear_sample_views(featmaps, proj.uv * feature_uv_scale(h, w, H, W, xyz))
+    feat = bilinear_sample_views(featmaps, feature_uv(proj.uv, h, w, H, W))
     mask = (proj.in_front & proj.inbound).to(xyz.dtype)
     return rgb.transpose(0, 1), feat.transpose(0, 1), mask.T[..., None]
 

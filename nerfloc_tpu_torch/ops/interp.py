@@ -72,16 +72,25 @@ def _corners(uv: Tensor, H: int, W: int):
     return u0, v0, (u - u0)[..., None], (v - v0)[..., None]
 
 
-def bilinear_sample(feat: Tensor, uv: Tensor) -> Tensor:
-    """Sample [H, W, C] features at [..., 2] pixel coords (u along W);
-    the coordinate is clamped to the border before interpolating."""
-    H, W, C = feat.shape
-    shape = uv.shape[:-1]
-    u0, v0, du, dv = _corners(uv.reshape(-1, 2), H, W)
-    flat = feat.reshape(H * W, C)
-    base = v0 * W + u0
-    c00, c01 = flat[base], flat[base + 1]
-    c10, c11 = flat[base + W], flat[base + W + 1]
+def _view_corners(uv: Tensor, H: int, W: int):
+    """Top-left corner rows of uv [V, ..., 2] in a [V*H*W] table of V
+    [H, W] maps (view v's rows start at v*H*W), and the fractions du, dv
+    [n, 1], n = the points of all views."""
+    V = uv.shape[0]
+    u0, v0, du, dv = _corners(uv.reshape(V, -1, 2), H, W)
+    rows = torch.arange(V, device=uv.device)[:, None] * (H * W) + v0 * W + u0
+    return rows.reshape(-1), du.reshape(-1, 1), dv.reshape(-1, 1)
+
+
+def bilinear_sample_views(feats: Tensor, uv: Tensor) -> Tensor:
+    """Sample [V, H, W, C] features at [V, ..., 2] pixel coords of each
+    view (u along W), all views at once -> [V, ..., C]; the coordinate is
+    clamped to the border before interpolating."""
+    V, H, W, C = feats.shape
+    rows, du, dv = _view_corners(uv, H, W)
+    flat = feats.reshape(V * H * W, C)
+    c00, c01 = flat[rows], flat[rows + 1]
+    c10, c11 = flat[rows + W], flat[rows + W + 1]
     if C >= 32:
         top = c00 * (1 - du) + c01 * du
         bot = c10 * (1 - du) + c11 * du
@@ -90,47 +99,46 @@ def bilinear_sample(feat: Tensor, uv: Tensor) -> Tensor:
         # same blend order as the reference's small-C path
         out = (c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv)
                + c10 * (1 - du) * dv + c11 * du * dv)
-    return out.reshape(shape + (C,))
+    return out.reshape(uv.shape[:-1] + (C,))
 
 
-def bilinear_sample_views(feats: Tensor, uv: Tensor) -> Tensor:
-    """bilinear_sample per view: feats [V, H, W, C], uv [V, ..., 2]."""
-    return torch.stack([bilinear_sample(f, p) for f, p in zip(feats, uv)])
+def bilinear_sample(feat: Tensor, uv: Tensor) -> Tensor:
+    """Sample [H, W, C] features at [..., 2] pixel coords (u along W)."""
+    return bilinear_sample_views(feat[None], uv[None])[0]
 
 
-class _SampleMapGrad(torch.autograd.Function):
-    """bilinear_sample whose feature-map gradient is built as the JAX
+class _SampleViewsMapGrad(torch.autograd.Function):
+    """bilinear_sample_views whose feature-map gradient is built as the JAX
     package's `bilinear_sample_mm_grad` builds it: each point's four corner
     weights in the cotangent's dtype (rounded step by step below f32), the
-    weighted cotangents summed in f32, the sum cast to the map's dtype. The
-    sample locations get no gradient."""
+    weighted cotangents of all views summed in one f32 table, the sum cast
+    to the maps' dtype. The sample locations get no gradient."""
 
     @staticmethod
-    def forward(ctx, feat: Tensor, uv: Tensor) -> Tensor:
+    def forward(ctx, feats: Tensor, uv: Tensor) -> Tensor:
         ctx.save_for_backward(uv)
-        ctx.fshape, ctx.fdtype = feat.shape, feat.dtype
-        return bilinear_sample(feat, uv)
+        ctx.fshape, ctx.fdtype = feats.shape, feats.dtype
+        return bilinear_sample_views(feats, uv)
 
     @staticmethod
     def backward(ctx, gy: Tensor):
         uv, = ctx.saved_tensors
-        H, W, C = ctx.fshape
-        u0, v0, du, dv = _corners(uv.reshape(-1, 2), H, W)
+        V, H, W, C = ctx.fshape
+        rows, du, dv = _view_corners(uv, H, W)
         du, dv = du[:, 0].to(gy.dtype), dv[:, 0].to(gy.dtype)
-        base = v0 * W + u0
         g = gy.reshape(-1, C).float()
-        acc = torch.zeros(H * W, C, dtype=torch.float32, device=gy.device)
+        acc = torch.zeros(V * H * W, C, dtype=torch.float32, device=gy.device)
         for off, w in ((0, (1 - du) * (1 - dv)), (1, du * (1 - dv)),
                        (W, (1 - du) * dv), (W + 1, du * dv)):
-            acc.index_add_(0, base + off, w.float()[:, None] * g)
-        return acc.reshape(H, W, C).to(ctx.fdtype), None
+            acc.index_add_(0, rows + off, w.float()[:, None] * g)
+        return acc.reshape(V, H, W, C).to(ctx.fdtype), None
 
 
 def bilinear_sample_views_map_grad(feats: Tensor, uv: Tensor) -> Tensor:
     """bilinear_sample_views for the scene-context build (the JAX package's
-    bilinear_sample_mm_grad): the maps' gradient as _SampleMapGrad computes
-    it, none for uv."""
-    return torch.stack([_SampleMapGrad.apply(f, p.detach()) for f, p in zip(feats, uv)])
+    bilinear_sample_mm_grad): the maps' gradient as _SampleViewsMapGrad
+    computes it, none for uv."""
+    return _SampleViewsMapGrad.apply(feats, uv.detach())
 
 
 def pack_bilinear_corners(feats: Tensor) -> Tensor:
@@ -161,10 +169,7 @@ def packed_bilinear_sample_views(packed, H: int, W: int, uv: Tensor) -> Tensor:
     Returns [V, N, C] in the table's dtype: a bf16 table is blended with f32
     weights in f32 and the result rounded to bf16, as the JAX package does."""
     V, N = uv.shape[0], uv.shape[1]
-    u0, v0, du, dv = _corners(uv, H, W)
-    base = torch.arange(V, device=uv.device)[:, None] * (H * W)
-    out = _gather_blend(packed, (base + v0 * W + u0).reshape(-1),
-                        du.reshape(-1, 1), dv.reshape(-1, 1))
+    out = _gather_blend(packed, *_view_corners(uv, H, W))
     return out.reshape(V, N, -1)
 
 

@@ -7,15 +7,18 @@ under its parent, as a record and as a profiler range, with one item per
 query and per step; the fused aggregation's replayed backward carries the
 item of the step it serves (a bf16 call: on the CPU only bf16 inputs go
 through _FusedAgg). Refinement runs 2 steps here, not 50: which spans open
-where does not depend on the count.
+where does not depend on the count. On a card (`cuda` marker), a 16-view
+train step makes no host sync inside its scene-context build.
 """
+import json
 import threading
 
 import numpy as np
 import pytest
 import torch
 
-from nerfloc_tpu_torch.configs import Config, MatchingConfig, RenderConfig, StaticShapeConfig
+from nerfloc_tpu_torch.configs import (Config, MatchingConfig, RenderConfig, StaticShapeConfig,
+                                      compute_dtype_of)
 from nerfloc_tpu_torch.data import device_batch, make_query_batch, stack_batches
 from nerfloc_tpu_torch.models.pose_estimator import NerfPoseEstimator, to_device_batch
 from nerfloc_tpu_torch.ops import fused_agg
@@ -213,3 +216,56 @@ def test_enable_clear_and_items():
     with span("step"):
         pass
     assert [(r.name, r.item) for r in profiling.records()] == [("step", 0)]
+
+
+def _blocks_host(name: str) -> bool:
+    """A runtime or driver call that waits for the device: any
+    *Synchronize, and a copy without Async (cudaMemcpy, cuMemcpyDtoH...)."""
+    if "Synchronize" in name:
+        return True
+    return name.startswith(("cudaMemcpy", "cuMemcpy")) and "Async" not in name
+
+
+@pytest.mark.cuda
+def test_no_host_sync_in_the_context_of_a_16_view_train_step(tmp_path):
+    """Runs on a card only: a bf16 train step at the main widths with 16
+    support views (64x64 frames, few rays and keypoints) under the tracer
+    and the profiler. Inside `span:forward.context` no runtime or driver
+    call blocks the host: the per-view work runs once for all views and
+    copies no host-made tensor to the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = Config(n_views_train=16, n_views_test=16, compute_dtype="bfloat16",
+                 render=RenderConfig(N_rand=64),
+                 matching=MatchingConfig(fine_num_3d_keypoints=64, coarse_num_3d_keypoints=64))
+    dev = torch.device("cuda")
+    model = NerfPoseEstimator(cfg, device=dev, seed=0, dtype=compute_dtype_of(cfg))
+    item = device_batch(make_query_batch(n_views=16, H=64, W=64, seed=0))
+    batch = to_device_batch(stack_batches([item]), dev)
+    train_step, state = step_mod.make_train_step(model, cfg), TrainState(model, cfg)
+    train_step(state, batch, generator=torch.Generator(dev).manual_seed(0))    # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.enable(True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            train_step(state, batch, generator=torch.Generator(dev).manual_seed(1))
+            torch.cuda.synchronize()
+    finally:
+        profiling.enable(False)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    # the host's range (the card's timeline repeats it as a gpu_user_annotation)
+    context = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+               if e["name"] == "span:forward.context"
+               and not str(e.get("cat", "")).startswith("gpu")]
+    assert len(context) == 1, [e.get("cat") for e in events
+                               if e["name"] == "span:forward.context"]
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    assert any("LaunchKernel" in e["name"] and context[0][0] <= float(e["ts"]) <= context[0][1]
+               for e in calls)
+    syncs = [e["name"] for e in calls if _blocks_host(e["name"])
+             and context[0][0] <= float(e["ts"]) <= context[0][1]]
+    assert syncs == []

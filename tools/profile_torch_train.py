@@ -97,8 +97,7 @@ def sampler_backward_ms(model, batch):
     """(forward ms, backward ms) of the context build's bilinear sampling of
     [fine features | ray features] at the fine points' projections."""
     import torch
-    from nerfloc_tpu_torch.models.fields.projector import (compute_projections,
-                                                           feature_uv_scale)
+    from nerfloc_tpu_torch.models.fields.projector import compute_projections, feature_uv
     from nerfloc_tpu_torch.ops.interp import bilinear_sample_views_map_grad
     with torch.no_grad():
         ctx, _ = model.build_context(batch)
@@ -106,7 +105,7 @@ def sampler_backward_ms(model, batch):
     V, H, W = sv.images.shape[:3]
     h, w = fmap.shape[1:3]
     proj = compute_projections(ctx.fine.xyz, sv.Ks, sv.poses, H, W)
-    uv = proj.uv * feature_uv_scale(h, w, H, W, ctx.fine.xyz)
+    uv = feature_uv(proj.uv, h, w, H, W)
     maps = torch.cat([fmap, sv.vis_featmaps], dim=-1).detach().requires_grad_(True)
     cot = torch.randn(V, uv.shape[1], maps.shape[-1], device=maps.device)
     fwd, bwd = [], []
