@@ -7,10 +7,13 @@ on the host, cycled through the window; each query's host-to-device copy
 is inside the window; its noise (keypoint draw, both RANSAC draws,
 refinement pixels) is drawn from the seed in set-up and handed to
 eval_step. `warmup` queries run in set-up. `config` switches the eval
-path's options (cascade matching, pose refinement). A traced run profiles
-`profile_items` queries after its window. After the window,
-`sample` distinct queries drawn from the seed are compared with the
-reference (harness/query_check.py).
+path's options (cascade matching, pose refinement). A traced run times
+the layers `probe_spans` names (of localize, pnp_cascade, refine; all
+three where the mix does not say) by CUDA events over its window, and
+profiles `profile_items` queries after it. After the window, `sample`
+distinct queries drawn from the seed are compared with the reference
+(harness/query_check.py); what they are compared on is kept for the
+window's first pass over the pool alone.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from harness import faults, query_check
+from harness import faults, query_check, spans as port_spans
 from harness.dev import peak_bytes, reset_peak, sync
 from harness.noise import distinct_pixels, gumbel
 from harness.probe import Capture, Patches, Spans, profile_items
@@ -29,6 +32,7 @@ from harness.session import Session
 
 KIND = "query"
 NOISE = ("kp_gumbel", "pnp_gumbel", "pnp2_gumbel", "refine_uv")
+PROBE_SPANS = ("localize", "pnp_cascade", "refine")
 
 
 class Driver:
@@ -91,36 +95,48 @@ class Driver:
         spans = None
         warm = int(self.mix["warmup"])
         done: List[Any] = []
+        ends = [] if trace else None
+        layers = self.mix.get("probe_spans", PROBE_SPANS) if trace else ()
         try:
             reset_peak(dev)
-            if trace:
+            if layers:
                 spans = Spans(patches)
+            if "localize" in layers:
                 spans.wrap(model, "localize_parts", "localize")
+            if "pnp_cascade" in layers:
                 for owner, attr in ((step_mod, "ransac_pnp"), (model, "match_cascade"),
                                     (step_mod, "count_pose_inliers")):
                     spans.wrap(owner, attr, "pnp_cascade")
+            if "refine" in layers:
                 spans.wrap(step_mod, "refine_pose", "refine")
-            sync(dev)
-            t0 = time.perf_counter()
-            while True:
-                k = len(done)
-                i = (warm + k) % len(self.pool)
-                cap.item = k
-                if spans:
-                    spans.item = k
-                done.append((i, self.query(i)))
-                if time.perf_counter() - t0 >= seconds and len(done) >= min_items:
-                    break
-            rec.window_s, rec.items = time.perf_counter() - t0, len(done)
-            rec.peak_bytes = peak_bytes(dev)
-            if trace:
+            with port_spans.recording(self.s.system, rec, trace):
                 sync(dev)
-                for layer in ("localize", "pnp_cascade", "refine"):
-                    rec.span_ms[layer] = spans.per_item_ms(layer, range(len(done)))
-                rec.profile_items = int(self.mix.get("profile_items", 1))
-                after = warm + len(done)
-                prof = profile_items(rec, patches, self.s.system.mods["nerf"], lambda k: (
-                    setattr(cap, "item", -1 - k), self.query((after + k) % len(self.pool))))
+                t0 = time.perf_counter()
+                while True:
+                    k = len(done)
+                    i = (warm + k) % len(self.pool)
+                    cap.item = k if k < len(self.pool) else None
+                    if spans:
+                        spans.item = k
+                    done.append((i, self.query(i)))
+                    now = time.perf_counter()
+                    if ends is not None:
+                        ends.append(now)
+                    if now - t0 >= seconds and len(done) >= min_items:
+                        break
+                rec.window_s, rec.items = time.perf_counter() - t0, len(done)
+                rec.peak_bytes = peak_bytes(dev)
+                if trace:
+                    rec.item_ms = [1e3 * (b - a) for a, b in zip([t0] + ends, ends)]
+                    sync(dev)
+                    for layer in layers:
+                        rec.span_ms[layer] = spans.per_item_ms(layer, range(len(done)))
+                    rec.profile_items = int(self.mix.get("profile_items", 1))
+                    after = warm + len(done)
+                    cap.item = None
+                    prof = profile_items(rec, patches, self.s.system.mods["nerf"], lambda k: (
+                        self.query((after + k) % len(self.pool))))
+            if trace:
                 rec.profile = prof.read()
         finally:
             patches.undo()

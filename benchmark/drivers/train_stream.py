@@ -8,7 +8,8 @@ pool's first items; the window's steps cycle through the pool from there.
 The reference follows the warm-up steps and the window's first `follow`
 (harness/train_check.py). The loss is read on the host every `log_every`
 steps and after the last one. A traced run profiles `profile_items` steps
-after its window.
+after its window, with the port's tracer on from its window's start to the
+end of the profiled steps (harness/spans.recording).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from harness import faults, train_check
+from harness import faults, train_check, spans as port_spans
 from harness.dev import peak_bytes, reset_peak, sync
 from harness.noise import distinct_pixels, gumbel
 from harness.probe import Patches, Spans, profile_items
@@ -91,33 +92,35 @@ class Driver:
                 spans = Spans(patches)
                 spans.wrap(model, "train_forward", "forward")
                 spans.mark_end(self.state, "apply_gradients", "update")
-            sync(dev)
-            t0 = time.perf_counter()
-            n = 0
-            while True:
-                if spans:
-                    spans.item = n
-                m = self.train_step((warm + n) % len(self.pool))
-                n += 1
-                if n == self.follow:
-                    rec_.snapshot("end")
-                    rec_.close()
-                if n % log_every == 0:
-                    losses.append(float(m["loss"]))
-                if time.perf_counter() - t0 >= seconds and n >= min_items:
-                    break
-            sync(dev)
-            rec.window_s, rec.items = time.perf_counter() - t0, n
-            losses.append(float(m["loss"]))
-            rec.peak_bytes = peak_bytes(dev)
+            with port_spans.recording(self.s.system, rec, trace):
+                sync(dev)
+                t0 = time.perf_counter()
+                n = 0
+                while True:
+                    if spans:
+                        spans.item = n
+                    m = self.train_step((warm + n) % len(self.pool))
+                    n += 1
+                    if n == self.follow:
+                        rec_.snapshot("end")
+                        rec_.close()
+                    if n % log_every == 0:
+                        losses.append(float(m["loss"]))
+                    if time.perf_counter() - t0 >= seconds and n >= min_items:
+                        break
+                sync(dev)
+                rec.window_s, rec.items = time.perf_counter() - t0, n
+                losses.append(float(m["loss"]))
+                rec.peak_bytes = peak_bytes(dev)
+                if trace:
+                    rec.span_ms["forward"] = spans.per_item_ms("forward", range(n))
+                    rec.span_ms["backward"] = spans.between_ms("forward", "update", range(n))
+                    rec.profile_items = int(self.mix.get("profile_items", 1))
+                    after = warm + n
+                    spans.item = -1
+                    prof = profile_items(rec, patches, self.s.system.mods["nerf"], lambda k: (
+                        self.train_step((after + k) % len(self.pool))))
             if trace:
-                rec.span_ms["forward"] = spans.per_item_ms("forward", range(n))
-                rec.span_ms["backward"] = spans.between_ms("forward", "update", range(n))
-                rec.profile_items = int(self.mix.get("profile_items", 1))
-                after = warm + n
-                spans.item = -1
-                prof = profile_items(rec, patches, self.s.system.mods["nerf"], lambda k: (
-                    self.train_step((after + k) % len(self.pool))))
                 rec.profile = prof.read()
         finally:
             patches.undo()

@@ -14,7 +14,8 @@ driver's `fault_patches`.
 - dropped: every other match of the mutual-nearest step left out.
 
 One card: no exchange between cards to leave out. A query carries no state
-from one query to the next.
+from one query to the next. A cell's data may list the faults it can have
+(`faults`): a query without refinement has no rays to halve.
 """
 from __future__ import annotations
 
@@ -22,6 +23,13 @@ import torch
 
 TRAIN = ("stale", "half_rays", "half_keypoints")
 QUERY = ("altered", "dropped", "half_rays")
+
+
+def of_cell(cell) -> tuple:
+    """The faults a cell can have: its data's `faults`, or every fault of
+    its driver's kind."""
+    kind = cell.driver().Driver.KIND
+    return tuple(cell.data.get("faults", TRAIN if kind == "train" else QUERY))
 
 
 def _halved(t: torch.Tensor, dim: int = -1) -> torch.Tensor:

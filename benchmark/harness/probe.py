@@ -118,11 +118,12 @@ class AggShapes:
 
 
 class Capture:
-    """What the wrapped layers returned, by item: {item: {key: value}}."""
+    """What the wrapped layers returned, by item: {item: {key: value}}.
+    While `item` is None, nothing is kept."""
 
     def __init__(self, patches: Patches):
         self.patches = patches
-        self.item = -1
+        self.item: Optional[int] = None
         self.items: Dict[int, Dict[str, Any]] = defaultdict(dict)
 
     def keep(self, owner, attr: str, take: Callable[[Dict[str, Any], tuple, dict, Any], None]
@@ -132,7 +133,8 @@ class Capture:
         def make(fn):
             def run(*a, **kw):
                 out = fn(*a, **kw)
-                take(self.items[self.item], a, kw, out)
+                if self.item is not None:
+                    take(self.items[self.item], a, kw, out)
                 return out
             return run
         self.patches.replace(owner, attr, make)

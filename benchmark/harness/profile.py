@@ -1,7 +1,8 @@
 """One torch.profiler window over a few items of a traced run, reduced to
 what the per-layer metrics and the breakdown read: the device's busy time
 (the union of its kernels, copies and sets), kernel launches, kernel time
-by name, and the idle gaps by what the host was doing."""
+by name, the idle gaps by what the host was doing, and the calls that
+blocked the host inside the port's root spans (harness/spans.py)."""
 from __future__ import annotations
 
 import bisect
@@ -28,6 +29,7 @@ class Profile:
     busy_s: float                                # union of device activity
     kernels: List[Tuple[str, float]]             # (name, seconds) of every kernel
     idle_by_host: List[Tuple[str, float]] = field(default_factory=list)
+    syncs: Dict[str, int] = field(default_factory=dict)   # by innermost span
 
     def kernel_s(self, pattern: str) -> float:
         rx = re.compile(pattern)
@@ -94,6 +96,7 @@ def _merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 def reduce_trace(events: List[dict], window_s: float) -> Profile:
     """Profile of a chrome trace's events (times in microseconds)."""
+    from .spans import host_syncs     # spans.py imports this module
     dev, kernels, host, spans = [], [], [], []
     for ev in events:
         if ev.get("ph") != "X" or "dur" not in ev:
@@ -109,7 +112,7 @@ def reduce_trace(events: List[dict], window_s: float) -> Profile:
     busy = _merge(dev)
     busy_s = sum(e - s for s, e in busy) * 1e-6
     return Profile(window_s=window_s, busy_s=busy_s, kernels=kernels,
-                   idle_by_host=_idle_by_host(busy, host, spans))
+                   idle_by_host=_idle_by_host(busy, host, spans), syncs=host_syncs(events))
 
 
 def _innermost(t: float, evs: List[Tuple[float, float, str]], starts: List[float]

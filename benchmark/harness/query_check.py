@@ -65,7 +65,10 @@ def match_wrong(port) -> float:
 def install_capture(cap, model, step_mod):
     """Keep, per item: the keypoints and the first pass's matches, each
     RANSAC call's inputs and result, the cascade's matches, the pose into
-    refinement, and the rays and colours of its first render."""
+    refinement, and the rays and colours of its first render. Nothing while
+    cap.item is None: the driver names only the items that can be sampled
+    (the window's first pass over its pool), so what is kept on the card
+    does not grow with the queries a window completes."""
     rule = importlib.import_module(f"{REFERENCE}.models.matching").mutual_nearest_matches
     thr = model.cfg.matching.thr
 
@@ -88,6 +91,8 @@ def install_capture(cap, model, step_mod):
 
     def refine(fn):
         def run(*a, **kw):
+            if cap.item is None:
+                return fn(*a, **kw)
             rec = cap.items[cap.item]
             rec["want_render"] = True
             out = fn(*a, **kw)
@@ -98,6 +103,8 @@ def install_capture(cap, model, step_mod):
     def render(fn):
         def run(*a, **kw):
             out = fn(*a, **kw)
+            if cap.item is None:
+                return out
             rec = cap.items[cap.item]
             if rec.get("want_render"):
                 rec["want_render"] = False
@@ -169,7 +176,9 @@ def refine_check(R, geometry, ctx, b, nz, rec) -> float:
 
 
 def sample_items(seed: int, done, n: int) -> List[tuple]:
-    """(window index, pool item) of n distinct pool items of the window."""
+    """(window index, pool item) of n distinct pool items of the window,
+    each at its first occurrence: the window cycles its pool, so that lies
+    in the first len(pool) queries, the ones the capture keeps."""
     first = {}
     for k, (i, _) in enumerate(done):
         first.setdefault(i, k)

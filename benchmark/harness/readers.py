@@ -1,8 +1,10 @@
 """The arithmetic the metric readers share (benchmark/metrics/*.py)."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+from . import spans
 from .cost import PEAK_BF16_FLOPS, agg_bound_s, agg_cost
 from .record import Record
 
@@ -27,6 +29,34 @@ def traced_item_ms(r: Record, kind: str) -> Optional[float]:
 
 def span_ms(r: Record, kind: str, layer: str) -> Optional[float]:
     return r.span_ms.get(layer) if r.kind == kind and r.trace else None
+
+
+def program_span_ms(r: Record, kind: str, name: str) -> Optional[float]:
+    """Host ms per window item of the port's span `name` (its records
+    while the tracer was on, harness/spans.span_ms)."""
+    if r.kind != kind or not r.trace or not r.items:
+        return None
+    return spans.span_ms(r.spans, name, range(r.items))
+
+
+def host_syncs(r: Record, kind: str) -> Optional[float]:
+    """Calls that blocked the host inside the port's root spans, per
+    profiled item (harness/spans.host_syncs); None where the port's tracer
+    left no record, as then no root span was there to count inside."""
+    p = r.profile
+    if r.kind != kind or p is None or not r.profile_items or not r.spans:
+        return None
+    return sum(p.syncs.values()) / r.profile_items
+
+
+def item_quantile_ms(r: Record, kind: str, q: float, min_beyond: int = 10
+                     ) -> Optional[float]:
+    """The q-quantile (nearest rank) of the traced window's host ms per
+    item; None where fewer than `min_beyond` items lie beyond it."""
+    n = len(r.item_ms)
+    if r.kind != kind or not r.trace or n * (1.0 - q) < min_beyond:
+        return None
+    return sorted(r.item_ms)[math.ceil(q * n) - 1]
 
 
 def idle_share(r: Record, kind: str) -> Optional[float]:

@@ -22,6 +22,11 @@ class Record:
     profile: Optional[Profile] = None
     profile_items: int = 0
     agg_calls: List[Dict[str, Any]] = field(default_factory=list)
+    # traced runs, with the port's tracer on from the window's start to the
+    # end of the profiled items: its span records (profiling.Span), and
+    # each window item's host ms, end to end
+    spans: List[Any] = field(default_factory=list)
+    item_ms: List[float] = field(default_factory=list)
     # from the cell's data: FLOPs of one item, counted on the reference
     flops_per_item: Optional[float] = None
 

@@ -3,9 +3,11 @@
 The result is one JSON line, the last line of standard output:
 correct, attempted, failed, metrics (the cell's end-to-end metrics, or
 with --trace 1 its per-layer metrics, each as read by
-benchmark/metrics/<name>.py), device, with --trace 1 breakdown, and last
-`checks`: each compared number with its limit. The compared numbers are
-also the last lines of standard error.
+benchmark/metrics/<name>.py), device, with --trace 1 breakdown,
+`samples` (the items each metric with a samples() reader was read from,
+as a percentile's), and last `checks`: each compared number with its
+limit. The samples and then the compared numbers are also the last lines
+of standard error.
 """
 from __future__ import annotations
 
@@ -91,11 +93,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     numbers = drv.check(seed, cap, done,
                         lambda: drv_mod.Driver(cell, systems.reference(), dev, plan))
     checks = judge(numbers, cell.data["limits"])
-    metrics = {}
+    metrics, samples = {}, {}
     for m in cell.metrics(trace):
-        v = spec.metric_reader(m["name"], cell.bench_dir)(rec)
+        reader = spec.metric_module(m["name"], cell.bench_dir)
+        v = reader.read(rec)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+            if hasattr(reader, "samples"):
+                samples[m["name"]] = reader.samples(rec)
     result: Dict[str, Any] = {
         "correct": passed(checks) and failed == 0 and rec.items > 0,
         "attempted": rec.items, "failed": failed, "metrics": metrics,
@@ -103,11 +108,15 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     if rec.profile is not None:
         result["breakdown"] = {"device_ops": [list(x) for x in rec.profile.top_ops()],
                                "idle_gaps": [list(x) for x in rec.profile.idle_by_host]}
+    if samples:
+        result["samples"] = samples
     result["checks"] = checks
     found = guard.loaded_forbidden()
     if found:
         print(f"benchmark: the run loaded {found}; no result", file=err)
         return EXIT_FORBIDDEN
+    for k, n in samples.items():
+        print(f"samples {k} {n!r}", file=err)
     for k, c in checks.items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=err)
     err.flush()

@@ -2,23 +2,26 @@
 (nerfloc_tpu_torch/utils/profiling.py: `span:<name>` profiler ranges and
 in-memory records, both only while the port's tracer is on).
 
+- `recording`: the drivers' switch, the port's tracer on from a traced
+  window's start to the end of its profiled items, its records kept in
+  the run's Record; an untraced run, or a system without the tracer (the
+  reference), leaves it off.
 - `span_ms`: host ms per item summed over the records of one span name.
 - `host_syncs`: the CUDA runtime and driver calls that block the host,
   counted inside the port's root spans (`span:query`, `span:step`) of a
   chrome trace, by the innermost span around each; the driver's own
   reads of poses and losses fall outside them.
-
-benchmark/tools/trace_spans.py reads these over a cell's traced window
-with the tracer on. The drivers do not turn the tracer on yet, so no
-metric of BENCHMARK.json reads them (PERF.md, open questions).
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
+import importlib
 from collections import Counter
 from typing import Dict, Iterable, Optional, Sequence
 
 from .profile import _innermost, _merge
+from .systems import PORT
 
 ROOT_SPANS = ("span:query", "span:step")
 API_CATS = ("cuda_runtime", "cuda_driver")
@@ -62,3 +65,23 @@ def span_ms(records, name: str, items: Iterable[int]) -> Optional[float]:
     items = set(items)
     ns = [r.end_ns - r.start_ns for r in records if r.name == name and r.item in items]
     return 1e-6 * sum(ns) / len(items) if ns else None
+
+
+@contextlib.contextmanager
+def recording(system, rec, on: bool):
+    """With `on` and the port as `system`, the port's tracer cleared and on
+    for the block (its items numbered from 0 by the block's first root
+    span), then off, its records in rec.spans. Otherwise nothing: the
+    tracer stays off and nothing is imported."""
+    if not on or system.package != PORT:
+        yield
+        return
+    tracer = importlib.import_module(f"{PORT}.utils.profiling")
+    tracer.clear()
+    tracer.enable(True)
+    try:
+        yield
+    finally:
+        tracer.enable(False)
+        rec.spans = tracer.records()
+        tracer.clear()

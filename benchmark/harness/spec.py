@@ -91,6 +91,12 @@ def load_cell(name: str, root: Path = ROOT, bench_dir: Optional[Path] = None) ->
                 bench_dir=bench_dir)
 
 
+def metric_module(name: str, bench_dir: Path = BENCH_DIR):
+    """benchmark/metrics/<name>.py: read(record), the metric or None, and
+    optionally samples(record), how many items the number was read from."""
+    return _module(bench_dir / "metrics" / f"{_name(name, 'metric')}.py", f"metric_{name}")
+
+
 def metric_reader(name: str, bench_dir: Path = BENCH_DIR) -> Callable:
     """read(record) of benchmark/metrics/<name>.py."""
-    return _module(bench_dir / "metrics" / f"{_name(name, 'metric')}.py", f"metric_{name}").read
+    return metric_module(name, bench_dir).read

@@ -44,7 +44,7 @@ def _tiny_config(name: str, real: str, dtype: str) -> dict:
 
 def make_root(tmp: Path, dtype: str = "float32", limits=None, sample: int = 2) -> Path:
     """A checkout at tmp: this benchmark's files, a BENCHMARK.json with
-    tiny copies of the configurations, and the two mixes with fewer items;
+    tiny copies of the configurations, and every mix with fewer items;
     nothing of the real cells is edited."""
     bench = tmp / "benchmark"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("tests", "__pycache__"))
@@ -54,8 +54,9 @@ def make_root(tmp: Path, dtype: str = "float32", limits=None, sample: int = 2) -
         (bench / "configs" / f"{tiny}.json").write_text(
             json.dumps(_tiny_config(tiny, c["name"], dtype)))
         c.update(name=tiny, file=f"benchmark/configs/{tiny}.json")
-    for mix in ("refine_query", "train"):
-        m = json.loads((bench / "traffic" / f"{mix}.json").read_text())
+    for path in sorted((bench / "traffic").glob("*.json")):
+        mix = path.stem
+        m = json.loads(path.read_text())
         m.update(pool=3, sample=sample)
         if m["driver"] == "query_loop":
             m.update(warmup=1)

@@ -50,8 +50,7 @@ def test_control_is_not_correct(root, cell):
 
 def _faults():
     for cell in CELLS:
-        kind = spec.load_cell(cell).driver().Driver.KIND
-        for f in faults.TRAIN if kind == "train" else faults.QUERY:
+        for f in faults.of_cell(spec.load_cell(cell)):
             yield cell, f
 
 

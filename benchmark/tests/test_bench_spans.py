@@ -95,3 +95,67 @@ def test_three_host_reads_in_a_program_span_are_three_syncs(card, tmp_path):
     blocking = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and blocks_host(e.get("name", ""))]
     assert len(blocking) >= 5
+
+
+def _query_record(**kw):
+    from harness.record import Record
+    return Record(kind="query", trace=True, **kw)
+
+
+def test_program_span_readers_on_records():
+    from harness import readers
+    recs = [Span("query", None, 0, 1, 0, 100_000_000),
+            Span("localize.context", "localize", 0, 1, 0, 30_000_000),
+            Span("localize.context", "localize", 1, 1, 0, 40_000_000),
+            Span("pnp", "query", 1, 1, 0, 20_000_000),
+            Span("localize.context", "localize", 2, 1, 0, 90_000_000)]   # a profiled item
+    r = _query_record(items=2, spans=recs)
+    assert readers.program_span_ms(r, "query", "localize.context") == pytest.approx(35.0)
+    assert readers.program_span_ms(r, "query", "query") == pytest.approx(50.0)
+    assert readers.program_span_ms(r, "query", "pnp") == pytest.approx(10.0)
+    assert readers.program_span_ms(r, "query", "localize.match") is None
+    assert readers.program_span_ms(r, "train", "pnp") is None
+    r.trace = False
+    assert readers.program_span_ms(r, "query", "pnp") is None
+
+
+def test_host_syncs_reader_per_profiled_item():
+    from harness import readers
+    from harness.profile import Profile
+    p = Profile(window_s=1.0, busy_s=0.5, kernels=[],
+                syncs={"span:query": 4, "span:pnp": 11})
+    recs = [Span("query", None, 0, 1, 0, 1)]
+    r = _query_record(items=5, spans=recs, profile=p, profile_items=3)
+    assert readers.host_syncs(r, "query") == pytest.approx(5.0)
+    assert readers.host_syncs(r, "train") is None
+    p.syncs = {}
+    assert readers.host_syncs(r, "query") == 0.0         # a count: none is 0
+    r.spans = []
+    assert readers.host_syncs(r, "query") is None        # the tracer was off
+
+
+def test_reduce_trace_keeps_the_syncs():
+    evs = [_ev("user_annotation", "span:query", 0, 1000),
+           _ev("user_annotation", "span:pnp", 100, 300),
+           _ev("cuda_runtime", "cudaStreamSynchronize", 150, 5),
+           _ev("cuda_runtime", "cudaMemcpy", 600, 5),
+           _ev("kernel", "k", 0, 10)]
+    assert reduce_trace(evs, window_s=0.001).syncs == {"span:pnp": 1, "span:query": 1}
+
+
+@pytest.mark.parametrize("n,want", [(200, 190.0), (399, 380.0), (1000, 950.0), (199, None)])
+def test_query_p95_on_records(n, want):
+    """Nearest rank of the window's per-query host ms; under 200 queries
+    fewer than 10 lie beyond the 95th percentile, and nothing is read."""
+    import importlib.util
+    from conftest import BENCH
+    path = BENCH / "metrics" / "query_p95_ms.localize.py"
+    spec = importlib.util.spec_from_file_location("p95", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ms = [float(v) for v in range(n, 0, -1)]             # 1..n ms, in any order
+    r = _query_record(items=n, item_ms=ms)
+    assert mod.read(r) == want
+    assert mod.samples(r) == n
+    r.trace = False
+    assert mod.read(r) is None

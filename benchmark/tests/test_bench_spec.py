@@ -63,6 +63,13 @@ def test_cell_found_by_name(cell):
         assert callable(spec.metric_reader(m["name"]))
 
 
+def test_every_metric_has_a_reader_file():
+    s = _spec()
+    for m in s["end_to_end"] + s["per_layer"]:
+        assert (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").is_file(), m["name"]
+        assert callable(spec.metric_reader(m["name"]))
+
+
 def test_unknown_names_refused(tmp_path):
     with pytest.raises(KeyError):
         spec.load_cell("no-such-cell")
@@ -80,7 +87,7 @@ def test_new_config_mix_metric_and_cell_as_files_alone(tmp_path):
     conf = json.loads((bench / "configs" / "tiny-7scenes.json").read_text())
     conf.update(name="tiny-new", frame=[32, 48])
     (bench / "configs" / "tiny-new.json").write_text(json.dumps(conf))
-    (bench / "traffic" / "tiny_localize.json").write_text(json.dumps(
+    (bench / "traffic" / "tiny_newmix.json").write_text(json.dumps(
         {"driver": "query_loop", "views": 3, "pool": 2, "warmup": 1, "sample": 1,
          "config": {"cascade_matching": False, "optimize_pose": False}}))
     (bench / "metrics" / "queries_per_s.py").write_text(
@@ -93,7 +100,7 @@ def test_new_config_mix_metric_and_cell_as_files_alone(tmp_path):
     s["configs"].append({"name": "tiny-new", "source": "x", "reduced": [], "why": "x",
                          "file": "benchmark/configs/tiny-new.json"})
     s["workloads"].append({"name": "tiny-new.localize", "config": "tiny-new",
-                           "traffic": "tiny_localize", "chips": 1, "why": "x"})
+                           "traffic": "tiny_newmix", "chips": 1, "why": "x"})
     s["end_to_end"].append({"name": "queries_per_s", "unit": "1/s", "better": "higher",
                             "bound": 0.05, "source": "host_clock",
                             "workloads": ["tiny-new.localize"]})

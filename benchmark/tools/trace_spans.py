@@ -10,19 +10,17 @@ on for the other (the same pool item, the order turning each pair), each
 item closed by a synchronize (`cost`: host ms of each side), and the host
 time of one span off and on, alone (`span_us`). These come before any
 profiler window: after one, each launch costs the host more. Then the
-cell's traced window (`--trace 1`: the spans the harness patches in, then
-the profiler over the mix's `profile_items`) with the tracer on from the
-window's start to its end, and from that run:
+cell's traced window (`--trace 1`: the spans the harness patches in and
+the port's tracer on, then the profiler over the mix's `profile_items`),
+and from that run:
 
 - `spans`: host ms per window item of each span of the port, and its calls
-  per item;
-- the readings PERF.md defines on them (harness/spans.py): for the query
-  cell `refine_render_ms`, `refine_grad_ms`, and for every cell
-  `agg_replay_ms` and `host_syncs` (per profiled item; `syncs_by_span`
-  splits them by the innermost span), each under the suffix of the cell's
-  per-layer metrics;
-- `metrics`: the cell's per-layer metrics as its readers read this run,
-  and `idle_gaps`, the breakdown's, with `unspanned_share`, the part of
+  per item; `span_share`, the window's spans times one span's host time
+  with the tracer on, over the window: the tracer's cost;
+- `syncs_by_span`: the calls that blocked the host in the profiled items
+  (harness/spans.host_syncs), per item, by the innermost span;
+- `metrics`: the cell's per-layer metrics as its readers read this run
+  (the span readings among them), and `idle_gaps`, the breakdown's, with `unspanned_share`, the part of
   the listed idle seconds that no span names.
 
 Prints one JSON line; --out appends it to a file. Needs a CUDA card.
@@ -36,12 +34,6 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(HERE), str(HERE.parent)]
-
-
-def _suffix(cell) -> str:
-    """The suffix of the cell's per-layer metrics (launches.<suffix>)."""
-    return next(m["name"].split(".", 1)[1] for m in cell.per_layer
-                if m["name"].startswith("launches."))
 
 
 def _item(drv, i: int) -> None:
@@ -77,7 +69,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(HERE.parent))
     a = ap.parse_args(argv)
     import torch
-    from harness import profile, runner, spans, spec, systems
+    from harness import runner, spans, spec, systems
     from nerfloc_tpu_torch.utils import profiling
     if not torch.cuda.is_available():
         print("trace_spans: no CUDA device", file=sys.stderr)
@@ -100,45 +92,28 @@ def main(argv=None) -> int:
             profiling.clear()
     span_us = {"off": _span_us(profiling, False), "on": _span_us(profiling, True)}
 
-    # the window, its profiled items' events kept for the sync count
-    syncs = {}
-    reduce = profile.reduce_trace
-
-    def keep(events, window_s):
-        syncs.update(spans.host_syncs(events))
-        return reduce(events, window_s)
-    profile.reduce_trace = keep
-    profiling.clear()
-    profiling.enable(True)
-    try:
-        rec, _, _ = drv.window(a.seconds, True)
-    finally:
-        profiling.enable(False)
-        profile.reduce_trace = reduce
+    # the window: the driver turns the port's tracer on over it and its
+    # profiled items, and keeps the records and the profiled syncs
+    rec, _, _ = drv.window(a.seconds, True)
     rec.flops_per_item = cell.data.get("flops_per_item")
-    recs = profiling.records()
-    profiling.clear()
+    recs, syncs = rec.spans, rec.profile.syncs
     window = range(rec.items)
     names = sorted({r.name for r in recs})
-    sfx = _suffix(cell)
-    read = {f"agg_replay_ms.{sfx}": spans.span_ms(recs, "fused_agg.replay", window),
-            f"host_syncs.{sfx}": sum(syncs.values()) / rec.profile_items}
-    if drv.KIND == "query":
-        read[f"refine_render_ms.{sfx}"] = spans.span_ms(recs, "refine.render", window)
-        read[f"refine_grad_ms.{sfx}"] = spans.span_ms(recs, "refine.grad", window)
     metrics = {m["name"]: spec.metric_reader(m["name"], cell.bench_dir)(rec)
                for m in cell.per_layer}
     gaps = rec.profile.idle_by_host
     listed = sum(s for _, s in gaps)
     row = {"workload": a.workload, "seed": a.seed, "items": rec.items,
            "window_s": rec.window_s, "profile_items": rec.profile_items,
-           "device": torch.cuda.get_device_name(0), "readings": read, "metrics": metrics,
+           "device": torch.cuda.get_device_name(0), "metrics": metrics,
            "spans": {n: {"ms": spans.span_ms(recs, n, window),
                          "calls": sum(r.name == n and r.item in window for r in recs)
                          / max(rec.items, 1)} for n in names},
            "syncs_by_span": {k: v / rec.profile_items for k, v in syncs.items()},
            "span_us": span_us,
            "spans_per_item": sum(r.item in window for r in recs) / max(rec.items, 1),
+           "span_share": sum(r.item in window for r in recs) * span_us["on"] * 1e-6
+           / rec.window_s,
            "idle_gaps": gaps,
            "unspanned_share": sum(s for k, s in gaps if k.startswith("- |")) / listed
            if listed else None}
