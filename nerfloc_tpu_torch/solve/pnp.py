@@ -2,13 +2,26 @@
 (counterpart of nerfloc_tpu/solve/pnp.py, `minimal='p3p'`, and
 `count_pose_inliers`).
 
-All hypotheses are solved at once as batched tensors; no step reads a
-value back to the host. Degenerate samples produce NaN poses that score no
-inliers, and a failed solve returns the identity (finite) pose.
+Degenerate samples produce NaN poses that score no inliers, and a failed
+solve returns the identity (finite) pose.
+
+The torch route (`torch_route`) solves all hypotheses at once as batched
+tensors, some 2,500 small ops. `ransac_pnp` runs it op by op on CPU tensors
+and, on CUDA tensors, replays it from two CUDA graphs around its SVD
+(`_GraphedRoute`): bit for bit the same result. On the card it reads a
+value back to the host only inside torch.linalg.svd, which checks its
+error flags there (2 syncs a call). Anything else that touches the host
+would wait for the card too, and did so 8 times a call: copying the P3P
+nodes, the inverse Vandermonde matrix and the bottom row [0, 0, 0, 1] to
+the card at each call, and five reads of the chosen candidate as a host
+index (`hyps[best]`, `hyp_finite[best]`, `valid_err[best]` twice,
+`inlier_counts[best]`). So the constants are made once per device and the
+candidate is read by index_select on the card.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -101,12 +114,17 @@ def _svd3(H: Tensor):
             torch.where(ok[..., None, None], Vt, nan))
 
 
-def _kabsch_w2c(Pw: Tensor, Pc: Tensor) -> Tensor:
-    """Rigid [R|t] [..., 3, 4] with Pc ~= R Pw + t from 3 correspondences."""
+def _kabsch_front(Pw: Tensor, Pc: Tensor):
+    """Kabsch up to its SVD, for Pc ~= R Pw + t from 3 correspondences: the
+    centroids and the cross-covariance H [..., 3, 3]."""
     cw = Pw.mean(dim=-2)
     ccm = Pc.mean(dim=-2)
     H = (Pw - cw[..., None, :]).transpose(-1, -2) @ (Pc - ccm[..., None, :])
-    U, Vt = _svd3(H)
+    return cw, ccm, H
+
+
+def _kabsch_back(cw: Tensor, ccm: Tensor, U: Tensor, Vt: Tensor) -> Tensor:
+    """Rigid [R|t] [..., 3, 4] from H's SVD (_svd3) and the centroids."""
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
     sgn = torch.sign(torch.linalg.det(V @ Ut))
     D = torch.diag_embed(torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], -1))
@@ -115,9 +133,19 @@ def _kabsch_w2c(Pw: Tensor, Pc: Tensor) -> Tensor:
     return torch.cat([R, t[..., None]], dim=-1)
 
 
-def _p3p_w2c(Pw: Tensor, xn: Tensor) -> Tensor:
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device, dtype: torch.dtype) -> Dict[str, Tensor]:
+    """The route's constant tensors, made once per device (a copy from the
+    host waits for the card)."""
+    return {"nodes": torch.as_tensor(_P3P_NODES, device=device)[None, :],
+            "vand_inv": torch.as_tensor(_VAND_INV, device=device),
+            "bottom": torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=dtype, device=device)}
+
+
+def _p3p_depths(Pw: Tensor, xn: Tensor):
     """Grunert P3P for [B] samples: Pw [B,3,3] world, xn [B,3,2] normalized
-    image coords -> [B, 4, 3, 4] w2c candidates (NaN where invalid)."""
+    image coords -> the camera points of the 4 candidates, Pc [B, 4, 3, 3],
+    and ok [B, 4] (False where a candidate is invalid)."""
     f = torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1)
     f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
     a2 = torch.sum((Pw[:, 1] - Pw[:, 2]) ** 2, dim=-1)
@@ -140,8 +168,8 @@ def _p3p_w2c(Pw: Tensor, xn: Tensor) -> Tensor:
         return (n * n - 2.0 * col(cg) * n * dd
                 + (1.0 - col(B) * (1.0 + v * v - 2.0 * v * col(cb))) * dd * dd)
 
-    nodes = torch.as_tensor(_P3P_NODES, device=Pw.device)[None, :]
-    coeffs = Fv(nodes) @ torch.as_tensor(_VAND_INV, device=Pw.device).T   # [B, 5]
+    consts = _constants(Pw.device, Pw.dtype)
+    coeffs = Fv(consts["nodes"]) @ consts["vand_inv"].T                    # [B, 5]
     v = _quartic_roots(coeffs)                                             # [B, 4]
     dv = den(v)
     u = num(v) / torch.where(torch.abs(dv) < 1e-12, torch.full_like(dv, 1e-12), dv)
@@ -171,8 +199,7 @@ def _p3p_w2c(Pw: Tensor, xn: Tensor) -> Tensor:
         s3 = torch.where(good, s3 - ds[..., 2], s3)
     Pc = torch.stack([s1[..., None] * f[:, None, 0], s2[..., None] * f[:, None, 1],
                       s3[..., None] * f[:, None, 2]], dim=-2)              # [B,4,3,3]
-    Rt = _kabsch_w2c(Pw[:, None].expand(-1, 4, -1, -1), Pc)
-    return torch.where(ok[..., None, None], Rt, torch.full_like(Rt, float("nan")))
+    return Pc, ok
 
 
 def _reproj_err2(w2c34: Tensor, pts3d: Tensor, x_norm: Tensor) -> Tensor:
@@ -219,32 +246,36 @@ def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
 
 
-def ransac_pnp(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor,
-               thresh_px: float = 8.0, n_hyps: int = 512,
-               refine_iters: int = 10, gumbel: Optional[Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> PnPResult:
-    """RANSAC over P3P minimal sets + Gauss-Newton absolute pose.
-
-    pts2d [N,2] pixels; pts3d [N,3] world; mask [N] valid matches; K [3,3].
-    gumbel: optional [n_hyps, N] Gumbel noise that picks the minimal sets
-    (drawn from `generator` when None)."""
-    N = pts2d.shape[0]
-    dtype, dev = pts3d.dtype, pts3d.device
+def _ransac_front(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor, gumbel: Tensor,
+                  thresh_px: float) -> Dict[str, Tensor]:
+    """The torch route up to the candidates' Kabsch SVD: the minimal sets
+    and P3P; the state `_ransac_back` takes, the SVD's input under "H"."""
     f = (K[0, 0] + K[1, 1]) / 2.0
     x_norm = torch.stack([(pts2d[:, 0] - K[0, 2]) / K[0, 0],
                           (pts2d[:, 1] - K[1, 2]) / K[1, 1]], dim=-1)
     thresh2 = (thresh_px / f) ** 2
     X_n, centroid, scale = _normalize_pts3d(pts3d, mask)
-
-    if gumbel is None:
-        gumbel = gumbel_noise((n_hyps, N), generator, dev)
     logits = torch.where(mask, torch.zeros_like(x_norm[:, 0]),
                          torch.full_like(x_norm[:, 0], float("-inf")))
     sample_idx = topk_first(gumbel + logits[None, :], 3)[1]               # [H, 3]
+    Pw = X_n[sample_idx]
+    Pc, ok = _p3p_depths(Pw, x_norm[sample_idx])                          # [H,4,3,3]
+    cw, ccm, H = _kabsch_front(Pw[:, None].expand(-1, 4, -1, -1), Pc)
+    return {"x_norm": x_norm, "thresh2": thresh2, "centroid": centroid, "scale": scale,
+            "ok": ok, "cw": cw, "ccm": ccm, "H": H}
 
-    Rt_n = _p3p_w2c(X_n[sample_idx], x_norm[sample_idx])                  # [H,4,3,4]
+
+def _ransac_back(st: Dict[str, Tensor], U: Tensor, Vt: Tensor, pts3d: Tensor, mask: Tensor,
+                 refine_iters: int) -> PnPResult:
+    """The torch route from the candidates' SVD (`_svd3` of st["H"]) to its
+    result. The chosen candidate is read on the card (index_select), never
+    as a host index."""
+    x_norm, thresh2 = st["x_norm"], st["thresh2"]
+    dtype, dev = pts3d.dtype, pts3d.device
+    Rt_n = _kabsch_back(st["cw"], st["ccm"], U, Vt)
+    Rt_n = torch.where(st["ok"][..., None, None], Rt_n, torch.full_like(Rt_n, float("nan")))
     R = Rt_n[..., :3]
-    t = Rt_n[..., 3] * scale - (R @ centroid[:, None])[..., 0]
+    t = Rt_n[..., 3] * st["scale"] - (R @ st["centroid"][:, None])[..., 0]
     hyps = torch.cat([R, t[..., None]], dim=-1).reshape(-1, 3, 4)         # [4H,3,4]
 
     errs = _reproj_err2(hyps, pts3d, x_norm)                              # [4H, N]
@@ -254,10 +285,15 @@ def ransac_pnp(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor,
     hyp_finite = torch.isfinite(hyps.reshape(hyps.shape[0], -1)).all(dim=-1)
     best = torch.argmax(torch.where(hyp_finite, inlier_counts,
                                     torch.full_like(inlier_counts, -1)))
-    eye34 = torch.eye(3, 4, dtype=dtype, device=dev)
-    best_h = torch.where(hyp_finite[best], hyps[best], eye34)
+    best1 = best.view(1)
 
-    w0 = (valid_err[best] < thresh2).to(dtype)
+    def pick(x):
+        return x.index_select(0, best1)[0]
+    eye34 = torch.eye(3, 4, dtype=dtype, device=dev)
+    best_h = torch.where(pick(hyp_finite), pick(hyps), eye34)
+
+    best_err = pick(valid_err)
+    w0 = (best_err < thresh2).to(dtype)
     refined = _gauss_newton(best_h, pts3d, x_norm, w0, refine_iters)
     inf1 = torch.full_like(w0, float("inf"))
     err_r = torch.where(mask, _reproj_err2(refined, pts3d, x_norm), inf1)
@@ -265,22 +301,127 @@ def ransac_pnp(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor,
                              refine_iters // 2 + 1)
     err_f = torch.where(mask, _reproj_err2(refined2, pts3d, x_norm), inf1)
 
-    use_ref = torch.sum(err_f < thresh2) >= inlier_counts[best]
+    use_ref = torch.sum(err_f < thresh2) >= pick(inlier_counts)
     final34 = torch.where(use_ref, refined2, best_h)
-    final_err = torch.where(use_ref, err_f, valid_err[best])
+    final_err = torch.where(use_ref, err_f, best_err)
     finite = torch.isfinite(final34).all()
     final34 = torch.where(finite, final34, eye34)
     final_err = torch.where(finite, final_err, inf1)
 
     inliers = final_err < thresh2
     num_inliers = torch.sum(inliers).to(torch.int32)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=dtype, device=dev)
+    bottom = _constants(dev, dtype)["bottom"]
     Rf = final34[:, :3]
     c2w = torch.cat([torch.cat([Rf.T, (-Rf.T @ final34[:, 3])[:, None]], dim=-1),
                      bottom], dim=0)
     return PnPResult(c2w=c2w, w2c=torch.cat([final34, bottom], dim=0),
-                     inliers=inliers, num_inliers=num_inliers,
-                     success=num_inliers >= 6)
+                     inliers=inliers, num_inliers=num_inliers, success=num_inliers >= 6)
+
+
+def torch_route(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor, gumbel: Tensor,
+                thresh_px: float = 8.0,
+                refine_iters: int = 10) -> PnPResult:
+    """ransac_pnp's torch route, op by op on the tensors' device."""
+    st = _ransac_front(pts2d, pts3d, mask, K, gumbel, thresh_px)
+    U, Vt = _svd3(st["H"])
+    return _ransac_back(st, U, Vt, pts3d, mask, refine_iters)
+
+
+class _Captured:
+    """fn(*tensors) replayed from a CUDA graph: captured at the first call,
+    on copies of its arguments that keep their strides; each call copies
+    its arguments in and replays. The outputs are the graph's own tensors,
+    which the next call overwrites. `pool`: another graph's memory pool to
+    capture into (see _GraphedRoute).
+
+    Memory: the graph's private pool holds what the capture allocated (the
+    intermediates of fn) for as long as the graph lives, reserved and not
+    counted as allocated. PyTorch also keeps a cuBLAS workspace (32 MiB on
+    Hopper) for each stream that runs cuBLAS. The warm-up runs on the
+    current stream, and the workspaces are released before the capture, so
+    that the capture stream's is made in the graph's pool, and after it, so
+    that it goes back to that pool, which only the replays use, as
+    torch._inductor's CUDA graph trees do. That changes what is counted as
+    allocated, not what the process holds: the workspace stays reserved in
+    the pool. A released workspace of another stream is made again at that
+    stream's next product."""
+
+    def __init__(self, fn, pool=None):
+        self.fn, self.pool, self.graph = fn, pool, None
+
+    def __call__(self, *args: Tensor):
+        if self.graph is None:
+            self.args = [torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                             device=a.device) for a in args]
+            for dst, src in zip(self.args, args):
+                dst.copy_(src)
+            self.fn(*self.args)                  # the libraries' handles
+            self.graph = torch.cuda.CUDAGraph()
+            torch._C._cuda_clearCublasWorkspaces()
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                self.out = self.fn(*self.args)
+            torch._C._cuda_clearCublasWorkspaces()
+        for dst, src in zip(self.args, args):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.out
+
+
+class _GraphedRoute:
+    """The torch route on CUDA replayed from two CUDA graphs, the front
+    (minimal sets and P3P) and the back (scores and polish), around the SVD
+    run as it is (torch.linalg.svd reads its error flags on the host: the
+    route's two syncs). The graphs replay the kernels that the route
+    launches op by op, so the result is the route's to the bit. The back
+    graph reads the front graph's own outputs and inputs, which stay put.
+
+    The back graph is captured into the front graph's pool, so it reuses
+    what the front graph frees (its intermediates and its cuBLAS
+    workspace). That is safe because the two replay in the order they were
+    captured, on one stream: the back graph's outputs, which may lie where
+    the front graph's intermediates do, are cloned before the next front
+    replay is queued."""
+
+    def __init__(self, thresh_px: float, refine_iters: int):
+        self.refine_iters = refine_iters
+        self.front = _Captured(functools.partial(_ransac_front, thresh_px=thresh_px))
+        self.back = None
+
+    def __call__(self, *args: Tensor) -> PnPResult:
+        st = self.front(*args)
+        U, Vt = _svd3(st["H"])
+        if self.back is None:
+            pts3d, mask = self.front.args[1], self.front.args[2]
+            self.back = _Captured(
+                lambda U, Vt: _ransac_back(st, U, Vt, pts3d, mask, self.refine_iters),
+                pool=self.front.graph.pool())
+        return PnPResult(*(x.clone() for x in self.back(U, Vt)))
+
+
+@functools.lru_cache(maxsize=8)
+def _graphed_route(layout: tuple, thresh_px: float, refine_iters: int) -> _GraphedRoute:
+    """The graphs of one input layout (device, dtypes, shapes, strides)."""
+    return _GraphedRoute(thresh_px, refine_iters)
+
+
+def ransac_pnp(pts2d: Tensor, pts3d: Tensor, mask: Tensor, K: Tensor,
+               thresh_px: float = 8.0, n_hyps: int = 512,
+               refine_iters: int = 10, gumbel: Optional[Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> PnPResult:
+    """RANSAC over P3P minimal sets + Gauss-Newton absolute pose.
+
+    pts2d [N,2] pixels; pts3d [N,3] world; mask [N] valid matches; K [3,3].
+    gumbel: optional [n_hyps, N] Gumbel noise that picks the minimal sets
+    (drawn from `generator` when None). The torch route, replayed from CUDA
+    graphs on CUDA tensors (see the module's docstring)."""
+    dev = pts3d.device
+    if gumbel is None:
+        gumbel = gumbel_noise((n_hyps, pts2d.shape[0]), generator, dev)
+    args = (pts2d, pts3d, mask, K, gumbel)
+    if dev.type == "cuda":
+        layout = tuple((a.device, a.dtype, tuple(a.shape), a.stride()) for a in args)
+        return _graphed_route(layout, float(thresh_px), refine_iters)(*args)
+    return torch_route(*args, thresh_px, refine_iters)
 
 
 def count_pose_inliers(c2w: Tensor, pts2d: Tensor, pts3d: Tensor, mask: Tensor,
